@@ -1,0 +1,162 @@
+"""Command-line interface of the port: ``rabbit_kssd_tpu_torch``.
+
+The flag surface is the JAX package's (``rabbitkssd_tpu.cli.build_parser``,
+mirroring the reference main.cpp:30-259) plus one global option,
+``--device`` (default ``cuda``; ``cpu`` runs every kernel's plain
+version).  ``sketch`` and ``alldist`` run on the torch device; the
+host-only commands (shuffle, union, sub, convert, merge, info) are the
+JAX package's own jax-free functions; ``dist`` is not yet ported.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import sys
+
+from rabbitkssd_tpu.cli import (build_parser, cmd_convert, cmd_info,
+                                cmd_merge, cmd_shuffle, cmd_sub, cmd_union)
+
+from .device import resolve_device
+from .utils.timers import phase
+
+
+def _eprint(*a):
+    print(*a, file=sys.stderr)
+
+
+def _load_or_sketch(list_or_sketch: str, shuf_file: str, device,
+                    least_qual: int, least_num_kmer: int,
+                    build_index_if_missing: bool, threads: int = 0):
+    """Sketch-or-load with the reference's artifact side effects
+    (subCommand.cpp:161-193)."""
+    from rabbitkssd_tpu.formats import (is_sketch_file, read_sketches,
+                                        save_sketches, write_index)
+    from rabbitkssd_tpu.shuffle import read_shuffle_file
+
+    from .engine.sketcher import sketch_file_list
+
+    if is_sketch_file(list_or_sketch):
+        with phase(f"read sketches from {list_or_sketch}"):
+            sk = read_sketches(list_or_sketch)
+        sketch_out = list_or_sketch
+        if build_index_if_missing:
+            idx, dic = sketch_out + ".index", sketch_out + ".dict"
+            if not (os.path.exists(idx) and os.path.exists(dic)):
+                with phase("transSketches"):
+                    write_index(sk, dic, idx)
+        return sk, sketch_out
+    shuf = read_shuffle_file(shuf_file)
+    with phase("computing sketches and save sketches into file"):
+        sk = sketch_file_list(list_or_sketch, shuf, device=device,
+                              least_qual=least_qual,
+                              least_num_kmer=least_num_kmer,
+                              threads=max(0, threads))
+        sketch_out = list_or_sketch + ".sketch"
+        save_sketches(sk, sketch_out)
+    if build_index_if_missing:
+        with phase("transSketches"):
+            write_index(sk, sketch_out + ".dict", sketch_out + ".index")
+    return sk, sketch_out
+
+
+def cmd_sketch(args) -> int:
+    from rabbitkssd_tpu.formats import (is_sketch_file, read_sketches,
+                                        save_sketches, write_index)
+    from rabbitkssd_tpu.shuffle import read_shuffle_file
+
+    from .engine.sketcher import sketch_file_list
+
+    _eprint("-----run the subcommand: sketch")
+    if is_sketch_file(args.input):
+        # sketch-file input short-circuit (main.cpp:189-215)
+        _eprint(
+            f"input is a sketch file, rename the sketch file from: "
+            f"{args.input} to: {args.output}"
+        )
+        if not args.query:
+            sk = read_sketches(args.input)
+            shutil.copy(args.input, args.output)
+            write_index(sk, args.output + ".dict", args.output + ".index")
+        else:
+            shutil.move(args.input, args.output)
+        return 0
+    _eprint(f"---read the shuffle file: {args.shuf_file}")
+    shuf = read_shuffle_file(args.shuf_file)
+    with phase("computing sketches and save sketches into file"):
+        sk = sketch_file_list(args.input, shuf, device=args.device,
+                              least_qual=args.leastQuality,
+                              least_num_kmer=args.leastNumKmer,
+                              threads=max(0, args.threads))
+        out = (args.output if args.output.endswith(".sketch")
+               else args.output + ".sketch")
+        save_sketches(sk, out)
+    _eprint(f"save the sketches into: {out}")
+    if not args.query:
+        with phase("transSketches"):
+            write_index(sk, out + ".dict", out + ".index")
+    return 0
+
+
+def cmd_alldist(args) -> int:
+    from .engine.dist_engine import run_alldist
+
+    _eprint("-----run the subcommand: alldist")
+    if args.maxDist < 0.0:
+        _eprint("ERROR: alldist, maxDist must be > 0")
+        return 1
+    if os.environ.get("KSSD_LEGACY_DIST") == "1" and not args.metric:
+        _eprint("ERROR: alldist, the legacy distance path "
+                "(KSSD_LEGACY_DIST=1) is not yet ported to "
+                "rabbit_kssd_tpu_torch; use rabbit_kssd_tpu")
+        return 2
+    sk, sketch_out = _load_or_sketch(args.input, args.shuf_file,
+                                     args.device, args.leastQuality,
+                                     args.leastNumKmer,
+                                     build_index_if_missing=True,
+                                     threads=args.threads)
+    with phase("index_tridist distance computing"):
+        run_alldist(sk, args.output, max_dist=args.maxDist,
+                    containment=bool(args.metric), device=args.device,
+                    index_path=sketch_out)
+    return 0
+
+
+def cmd_dist(args) -> int:
+    _eprint("ERROR: dist is not yet ported to rabbit_kssd_tpu_torch; "
+            "use rabbit_kssd_tpu dist")
+    return 2
+
+
+_DISPATCH = {
+    "shuffle": cmd_shuffle,
+    "sketch": cmd_sketch,
+    "alldist": cmd_alldist,
+    "dist": cmd_dist,
+    "union": cmd_union,
+    "sub": cmd_sub,
+    "convert": cmd_convert,
+    "merge": cmd_merge,
+    "info": cmd_info,
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = build_parser()
+    ap.prog = "rabbit_kssd_tpu_torch"
+    ap.description = "PyTorch/CUDA Kssd-based genome distance estimation"
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for sketch/alldist: cuda (default, "
+                         "requires a card) or cpu")
+    args = ap.parse_args(argv)
+    if args.cmd in ("sketch", "alldist"):
+        args.device = resolve_device(args.device)
+    return _DISPATCH[args.cmd](args)
+
+
+def _cli() -> None:
+    sys.exit(main())
+
+
+if __name__ == "__main__":
+    _cli()
