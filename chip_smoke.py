@@ -28,7 +28,26 @@ Phases, each printing its own lines:
    increments/s counting the corpus sketch all-vs-all;
 7. profile: the CLI sketch once more, warm, under ``torch.profiler``
    (``KSSD_PROFILE_DIR``), and the sketch trace's device busy share and
-   device time by kernel (utils/trace_report.py).
+   device time by kernel (utils/trace_report.py);
+8. config 2 (BASELINE.json): the phase-4 corpus split into 192 reference
+   and 64 query genomes, through the CLI on the card:
+   (a) ``dist -r ref.list -q query.list -L L3K10.shuf -D 0.05``, both
+   sides sketched from FASTA: the kernel's launches equal both
+   sketches' batches + re-runs, and both sketches' sets equal phase 4's;
+   (b) the same dist with device counting forced (KSSD_DIST_PATH=matmul,
+   KSSD_HOST_JOIN_MAX=0) on (a)'s sketches gives (a)'s rows;
+   (c) ``dist -N 10 -D 1.0`` and ``-D 1.0`` on (a)'s sketches: for three
+   queries the 10 rows' common counts equal np.intersect1d recounts and
+   their distances are the query's 10 smallest;
+   (d) the golden reference sketch against ``fa_query.list`` (k8s4l1,
+   ``-D 1.0``, with and without ``-N 2``) gives the reference binary's
+   rows;
+   (e) legacy (KSSD_LEGACY_DIST=1): ``alldist`` on the phase-4 sketch and
+   ``dist`` in both directions (192 >= 64 and 64 < 192); the sorted
+   intersection's counts on the card equal the native walk's, and the
+   legacy files rerun with ``--device cpu`` are byte-equal to the
+   card's.  Prints each leg's wall and the legacy intersection's device
+   time (CUDA events) against its CPU time.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Catches nothing: any failure exits
@@ -61,6 +80,11 @@ SEED = 2024
 MAX_DIST = "0.05"
 # one stream-step batch of L3K10 windows: 16 rows x (2^17 + halo 32)
 STEP_DIMS = 16 * ((1 << 17) + 32)
+# config 2: the first N_REF corpus genomes are the reference side
+N_REF = 192
+TOP_N = 10
+# counting forced onto the device (int8 memberships, torch._int_mm)
+DEVICE_COUNTING = {"KSSD_DIST_PATH": "matmul", "KSSD_HOST_JOIN_MAX": "0"}
 
 
 def _die(msg: str) -> None:
@@ -204,9 +228,26 @@ def _sets(path: str) -> dict:
     return {s.name: np.sort(s.hashes) for s in read_sketches(path).sketches}
 
 
-def _budget(stderr: str) -> dict:
-    """The sketcher's ``sketch budget:`` JSON line from the CLI stderr."""
-    return json.loads(stderr.split("sketch budget: ", 1)[1].splitlines()[0])
+def _budgets(stderr: str) -> list[dict]:
+    """The sketcher's ``sketch budget:`` JSON lines from the CLI stderr,
+    one per sketched list."""
+    return [json.loads(part.splitlines()[0])
+            for part in stderr.split("sketch budget: ")[1:]]
+
+
+@contextlib.contextmanager
+def _env(**kw: str):
+    """Set environment variables for the duration of a block."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def main_path(device, work: str, n_genomes: int, genome_len: int
@@ -236,7 +277,7 @@ def main_path(device, work: str, n_genomes: int, genome_len: int
     alldist_s, _ = run_cli(dev + ["alldist", "-i", sketch_path, "-o",
                                   dist_path, "-D", MAX_DIST])
     launches = member.launches
-    budget = _budget(err)
+    (budget,) = _budgets(err)
     # on the card every batch launches the kernel once (an overflow
     # re-run once more); a CPU rehearsal runs the plain version instead
     _require(launches == (budget["batches"] + budget["reruns"]
@@ -258,18 +299,9 @@ def main_path(device, work: str, n_genomes: int, genome_len: int
                  f"sketch of {path} != oracle")
     # (b) device counting gives the same rows
     dist2 = os.path.join(work, "bact.matmul.alldist")
-    env = {"KSSD_DIST_PATH": "matmul", "KSSD_HOST_JOIN_MAX": "0"}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _env(**DEVICE_COUNTING):
         matmul_s, _ = run_cli(dev + ["alldist", "-i", sketch_path, "-o",
                                      dist2, "-D", MAX_DIST])
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
     rows = _sorted_rows(dist_path)
     _require(rows == _sorted_rows(dist2), "matmul alldist rows != auto rows")
     nums = {"genomes": len(files), "bases": total, "setup_s": setup_s,
@@ -359,7 +391,7 @@ def profile_sketch(device, ctx: dict, work: str, unprofiled: dict) -> dict:
                              ctx["shuf_path"]])
     finally:
         timers.PROFILE_DIR = saved
-    b = _budget(err)
+    (b,) = _budgets(err)
     (trace,) = glob.glob(os.path.join(trace_dir, f"{stem}.*.json"))
     rep = summarize(trace, top=1 << 20)
     keep_ms = sum(t["ms"] for t in rep["top"]
@@ -414,6 +446,194 @@ def golden_checks(device, work: str) -> list[str]:
     finally:
         os.chdir(cwd)
     return done
+
+
+def _rows_by_query(path: str) -> dict:
+    """dist rows grouped by query: {query: [(ref, common, dist text)]}."""
+    out: dict = {}
+    with open(path) as f:
+        next(f)
+        for line in f:
+            q, r, counts, _, d = line.rstrip("\n").split("\t")
+            out.setdefault(q, []).append((r, int(counts.split("|")[0]), d))
+    return out
+
+
+def config2(device, work: str, ctx: dict) -> dict:
+    """Phase 8 (a)-(d): BASELINE config 2 through the CLI ``dist``."""
+    from rabbitkssd_tpu_torch.ops.member import member
+
+    root = os.path.join(work, "config2")
+    os.makedirs(root)
+    files = ctx["files"]
+    lists = {}
+    for side, part in (("ref", files[:N_REF]), ("query", files[N_REF:])):
+        lists[side] = os.path.join(root, f"{side}.list")
+        with open(lists[side], "w") as f:
+            f.write("\n".join(part) + "\n")
+    ref_sk, q_sk = lists["ref"] + ".sketch", lists["query"] + ".sketch"
+    dev = ["--device", str(device)]
+    walls = {}
+
+    # (a) both sides sketched from FASTA on the card
+    out_a = os.path.join(root, "c2.dist")
+    member.launches = 0
+    walls["a_dist_from_fasta_s"], err = run_cli(
+        dev + ["dist", "-r", lists["ref"], "-q", lists["query"], "-L",
+               ctx["shuf_path"], "-D", MAX_DIST, "-o", out_a])
+    launches = member.launches
+    budgets = _budgets(err)
+    _require(len(budgets) == 2, f"{len(budgets)} sketch budgets, not 2")
+    # on the card both sketches launch the kernel on every batch and
+    # re-run; a CPU rehearsal runs the plain version instead
+    want = (sum(b["batches"] + b["reruns"] for b in budgets)
+            if device.type == "cuda" else 0)
+    _require(launches == want and min(b["batches"] for b in budgets) > 0,
+             f"config 2: {launches} launches != {want} batches + re-runs")
+    for path, part in ((ref_sk, files[:N_REF]), (q_sk, files[N_REF:])):
+        got = _sets(path)
+        _require(sorted(got) == sorted(part), f"{path}: genome names")
+        for name, h in got.items():
+            _require(np.array_equal(h, ctx["sets"][name]),
+                     f"config 2 sketch of {name} != phase 4")
+    rows_a = _sorted_rows(out_a)
+    _require(len(rows_a) > 1, "config 2 dist wrote no rows")
+
+    # (b) device counting gives the same rows
+    out_b = os.path.join(root, "c2.matmul.dist")
+    with _env(**DEVICE_COUNTING):
+        walls["b_dist_matmul_s"], _ = run_cli(
+            dev + ["dist", "-r", ref_sk, "-q", q_sk, "-D", MAX_DIST, "-o",
+                   out_b])
+    _require(_sorted_rows(out_b) == rows_a, "matmul dist rows != auto rows")
+
+    # (c) top-N against recounts and the full rows
+    out_n = os.path.join(root, "c2.top.dist")
+    out_full = os.path.join(root, "c2.full.dist")
+    walls["c_dist_top_n_s"], _ = run_cli(
+        dev + ["dist", "-r", ref_sk, "-q", q_sk, "-N", str(TOP_N), "-D",
+               "1.0", "-o", out_n])
+    walls["c_dist_full_s"], _ = run_cli(
+        dev + ["dist", "-r", ref_sk, "-q", q_sk, "-D", "1.0", "-o",
+               out_full])
+    top, full = _rows_by_query(out_n), _rows_by_query(out_full)
+    queries = files[N_REF:]
+    _require(sorted(top) == sorted(queries) and all(
+        len(top[q]) == TOP_N for q in queries), "top-N rows per query")
+    _require(all(len(full[q]) == N_REF for q in queries),
+             "-D 1.0 rows per query")
+    sets = ctx["sets"]
+    for q in (queries[0], queries[len(queries) // 2], queries[-1]):
+        for r, c, _ in top[q]:
+            _require(c == np.intersect1d(sets[q], sets[r]).size,
+                     f"top-N common of {q} vs {r} != recount")
+        _require(sorted(float(d) for _, _, d in top[q])
+                 == sorted(float(d) for _, _, d in full[q])[:TOP_N],
+                 f"top-N distances of {q} are not its {TOP_N} smallest")
+
+    # (d) the reference binary's dist goldens
+    gdir = os.path.join(work, "golden_dist")
+    shutil.copytree(os.path.join(GOLDEN, "genomes"),
+                    os.path.join(gdir, "genomes"))
+    for name in ("fa_query.list", "fa_k8s4l1.sketch"):
+        shutil.copy(os.path.join(GOLDEN, name), gdir)
+    cwd = os.getcwd()
+    os.chdir(gdir)  # the list names genomes relatively
+    try:
+        for extra, golden in (([], "fa_k8s4l1.dist"),
+                              (["-N", "2"], "fa_k8s4l1.distN2")):
+            walls[f"d_{golden}_s"], _ = run_cli(
+                dev + ["dist", "-r", "fa_k8s4l1.sketch", "-q",
+                       "fa_query.list", "-L",
+                       os.path.join(GOLDEN, "k8s4l1.shuf"), "-D", "1.0",
+                       "-o", golden] + extra)
+            _require(_sorted_rows(golden) == _sorted_rows(
+                os.path.join(GOLDEN, golden)), f"{golden} != golden")
+    finally:
+        os.chdir(cwd)
+    return {"ref": N_REF, "query": len(queries), "launches": launches,
+            "batches": [b["batches"] for b in budgets],
+            "rows": len(rows_a) - 1, "walls": walls,
+            "ref_sketch": ref_sk, "query_sketch": q_sk}
+
+
+def _walk_counts(rows_hashes, cols_hashes) -> np.ndarray:
+    """The native posting walk's [rows, cols] intersection counts."""
+    from rabbitkssd_tpu_torch.engine.dist_engine import _CsrIndex
+
+    csr = _CsrIndex.from_hashes(cols_hashes)
+    lp = csr.walk_layout(csr.query_pairs(rows_hashes))
+    out = np.empty((len(rows_hashes), len(cols_hashes)), np.int32)
+    csr.walk(out, lp)
+    return out
+
+
+def legacy(device, work: str, ctx: dict, c2: dict, reps: int = 10) -> dict:
+    """Phase 8 (e): the legacy sorted-intersection paths on the card,
+    their counts against the walk's, and their files against a CPU run."""
+    import torch
+
+    from rabbitkssd_tpu_torch.host import read_sketches
+    from rabbitkssd_tpu_torch.ops.intersect import (_ordered_int64,
+                                                    _pair_common,
+                                                    common_counts_sorted,
+                                                    default_chunk,
+                                                    pad_sketch_matrix)
+
+    root = os.path.join(work, "legacy")
+    os.makedirs(root)
+    ref_sk, q_sk = c2["ref_sketch"], c2["query_sketch"]
+    legs = {"alldist": ["alldist", "-i", ctx["sketch"], "-D", MAX_DIST],
+            "dist_ref_ge_query": ["dist", "-r", ref_sk, "-q", q_sk, "-D",
+                                  MAX_DIST],
+            "dist_ref_lt_query": ["dist", "-r", q_sk, "-q", ref_sk, "-D",
+                                  MAX_DIST]}
+    walls, rows = {}, {}
+    with _env(KSSD_LEGACY_DIST="1"):
+        for tag, dev in (("card", str(device)), ("cpu", "cpu")):
+            for leg, argv in legs.items():
+                walls[f"{leg}_{tag}_s"], _ = run_cli(
+                    ["--device", dev] + argv
+                    + ["-o", os.path.join(root, f"{leg}.{tag}")])
+    for leg in legs:
+        with open(os.path.join(root, f"{leg}.card"), "rb") as f:
+            card = f.read()
+        with open(os.path.join(root, f"{leg}.cpu"), "rb") as f:
+            _require(f.read() == card, f"legacy {leg}: cpu file != card file")
+        _require(card.startswith(b" "), f"legacy {leg}: header")
+        rows[leg] = card.count(b"\n") - 1
+
+    # counts on the card against the walk's
+    allh = [np.sort(s.hashes) for s in read_sketches(ctx["sketch"]).sketches]
+    rh = [np.sort(s.hashes) for s in read_sketches(ref_sk).sketches]
+    qh = [np.sort(s.hashes) for s in read_sketches(q_sk).sketches]
+    _require(np.array_equal(common_counts_sorted(allh, None, device),
+                            _walk_counts(allh, allh)),
+             "sorted intersection (all vs all) on the card != walk")
+    _require(np.array_equal(common_counts_sorted(rh, qh, device),
+                            _walk_counts(qh, rh).T),
+             "sorted intersection (ref vs query) on the card != walk")
+
+    # the all-vs-all intersection's time: card (CUDA events) and CPU
+    a, sizes = pad_sketch_matrix(allh)
+    sizes = torch.from_numpy(sizes.astype(np.int64))
+    args = {}
+    for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        rows_t = _ordered_int64(a, dev)
+        args[tag] = (rows_t, sizes.to(dev), rows_t, sizes.to(dev),
+                     default_chunk(dev, a.size))
+    t0 = time.perf_counter()
+    for _ in range(2):
+        _pair_common(*args["cpu"])
+    nums = {"rows": rows, "walls": walls, "shape": list(a.shape),
+            "chunk": {k: v[-1] for k, v in args.items()},
+            "intersect_cpu_ms": (time.perf_counter() - t0) / 2 * 1e3,
+            "cpu_threads": torch.get_num_threads()}
+    if device.type == "cuda":
+        _pair_common(*args["card"])  # warm
+        nums["intersect_card_ms"] = _events_ms(
+            lambda: _pair_common(*args["card"]), reps)
+    return nums
 
 
 def int_mm_rate(device, rows: int = 8192, width: int = 32768,
@@ -488,6 +708,15 @@ def main() -> None:
             print(f"[6 walk] {json.dumps(walk_rate(ctx, copies))}")
         prof = profile_sketch(device, ctx, work, mp["budget"])
         print(f"[7 profile] {json.dumps(prof)}")
+        c2 = config2(device, work, ctx)
+        print(f"[8 config 2] {json.dumps(c2)}")
+        print("[8 config 2] launches cover both sketches, sets equal "
+              "phase 4, matmul rows equal auto rows, top-N equals "
+              "recounts and the smallest distances, goldens equal")
+        lg = legacy(device, work, ctx, c2)
+        print(f"[8 legacy] {json.dumps(lg)}")
+        print("[8 legacy] card counts equal the walk's, card files equal "
+              "the cpu files")
 
     rate = int_mm_rate(device)
     print(f"[6 int_mm] {json.dumps(rate)}")

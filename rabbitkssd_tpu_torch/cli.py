@@ -3,9 +3,10 @@
 The flag surface is the JAX package's (``rabbitkssd_tpu.cli.build_parser``,
 mirroring the reference main.cpp:30-259) plus one global option,
 ``--device`` (default ``cuda``; ``cpu`` runs every kernel's plain
-version).  ``sketch`` and ``alldist`` run on the torch device; the
-host-only commands (shuffle, union, sub, convert, merge, info) are the
-JAX package's own jax-free functions; ``dist`` is not yet ported.
+version).  ``sketch``, ``alldist`` and ``dist`` (with top-N, and the
+legacy sorted-intersection paths under ``KSSD_LEGACY_DIST=1``) run on
+the torch device; the host-only commands (shuffle, union, sub, convert,
+merge, info) are the JAX package's own jax-free functions.
 """
 
 from __future__ import annotations
@@ -99,22 +100,25 @@ def cmd_sketch(args) -> int:
 
 
 def cmd_alldist(args) -> int:
-    from .engine.dist_engine import run_alldist
+    from .engine.dist_engine import run_alldist, run_alldist_legacy
 
     _eprint("-----run the subcommand: alldist")
     if args.maxDist < 0.0:
         _eprint("ERROR: alldist, maxDist must be > 0")
         return 1
-    if os.environ.get("KSSD_LEGACY_DIST") == "1" and not args.metric:
-        _eprint("ERROR: alldist, the legacy distance path "
-                "(KSSD_LEGACY_DIST=1) is not yet ported to "
-                "rabbit_kssd_tpu_torch; use rabbit_kssd_tpu")
-        return 2
     sk, sketch_out = _load_or_sketch(args.input, args.shuf_file,
                                      args.device, args.leastQuality,
                                      args.leastNumKmer,
                                      build_index_if_missing=True,
                                      threads=args.threads)
+    if os.environ.get("KSSD_LEGACY_DIST") == "1" and not args.metric:
+        # the reference's legacy sorted-intersection path (tri_dist,
+        # dist.cpp:345-427) — unreachable from its CLI too
+        # (subCommand.cpp:197 commented); jaccard/mash only
+        with phase("tri_dist distance computing"):
+            run_alldist_legacy(sk, args.output, max_dist=args.maxDist,
+                               device=args.device)
+        return 0
     with phase("index_tridist distance computing"):
         run_alldist(sk, args.output, max_dist=args.maxDist,
                     containment=bool(args.metric), device=args.device,
@@ -123,9 +127,41 @@ def cmd_alldist(args) -> int:
 
 
 def cmd_dist(args) -> int:
-    _eprint("ERROR: dist is not yet ported to rabbit_kssd_tpu_torch; "
-            "use rabbit_kssd_tpu dist")
-    return 2
+    from .engine.dist_engine import run_dist, run_dist_legacy
+
+    _eprint("-----run the subcommand: dist")
+    if args.maxDist < 0.0:
+        _eprint("ERROR: dist, maxDist must be > 0")
+        return 1
+    ref, ref_out = _load_or_sketch(args.reference, args.shuf_file,
+                                   args.device, args.leastQuality,
+                                   args.leastNumKmer,
+                                   build_index_if_missing=True,
+                                   threads=args.threads)
+    query, _ = _load_or_sketch(args.query, args.shuf_file, args.device,
+                               args.leastQuality, args.leastNumKmer,
+                               build_index_if_missing=False,
+                               threads=args.threads)
+    if ref.info.id != query.info.id:
+        _eprint(
+            "ERROR: dist, the sketch infos between reference and query "
+            "files are not match\n"
+            "try to use the same shuffle file to generate sketches of the "
+            "reference and query datasets"
+        )
+        return 1
+    if (os.environ.get("KSSD_LEGACY_DIST") == "1" and not args.metric
+            and not args.neighborN_max):
+        with phase("dist distance computing"):
+            run_dist_legacy(ref, query, args.output, max_dist=args.maxDist,
+                            device=args.device)
+        return 0
+    with phase("index_dist distance computing"):
+        run_dist(ref, query, args.output, max_dist=args.maxDist,
+                 containment=bool(args.metric), device=args.device,
+                 max_neighbor=args.neighborN_max or 0,
+                 ref_index_path=ref_out)
+    return 0
 
 
 _DISPATCH = {
@@ -146,10 +182,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.prog = "rabbit_kssd_tpu_torch"
     ap.description = "PyTorch/CUDA Kssd-based genome distance estimation"
     ap.add_argument("--device", default="cuda",
-                    help="torch device for sketch/alldist: cuda (default, "
-                         "requires a card) or cpu")
+                    help="torch device for sketch/alldist/dist: cuda "
+                         "(default, requires a card) or cpu")
     args = ap.parse_args(argv)
-    if args.cmd in ("sketch", "alldist"):
+    if args.cmd in ("sketch", "alldist", "dist"):
         args.device = resolve_device(args.device)
     return _DISPATCH[args.cmd](args)
 

@@ -20,6 +20,7 @@ PORT_MODULES = [
     "rabbitkssd_tpu_torch.ops.member",
     "rabbitkssd_tpu_torch.ops._build",
     "rabbitkssd_tpu_torch.ops.distance",
+    "rabbitkssd_tpu_torch.ops.intersect",
     "rabbitkssd_tpu_torch.engine.sketcher",
     "rabbitkssd_tpu_torch.engine.dist_engine",
     "rabbitkssd_tpu_torch.utils.timers",
@@ -48,13 +49,6 @@ def test_cuda_without_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
-
-
-def test_cli_dist_not_ported(capsys):
-    from rabbitkssd_tpu_torch.cli import main
-
-    assert main(["dist", "-r", "a", "-q", "b", "-o", "c"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_phase_writes_profiler_trace(tmp_path, monkeypatch, capsys):
