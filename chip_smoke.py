@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (rabbitkssd_tpu_torch).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+                                 # or several
 
 Phases, each printing its own lines:
 
@@ -47,7 +48,22 @@ Phases, each printing its own lines:
    intersection's counts on the card equal the native walk's, and the
    legacy files rerun with ``--device cpu`` are byte-equal to the
    card's.  Prints each leg's wall and the legacy intersection's device
-   time (CUDA events) against its CPU time.
+   time (CUDA events) against its CPU time;
+9. several ranks (``torchrun --standalone``, this script's ``--rank``
+   mode): (a) the CLI ``sketch`` then ``alldist -D 0.05`` twice, the
+   second with KSSD_HOST_JOIN_MAX=0 (the ring and the vp reduction), in
+   every rank: on several cards one rank per card (``--device cuda`` ->
+   cuda:LOCAL_RANK, a ``cpu:gloo,cuda:nccl`` group); on one card 3 ranks
+   share cuda:0 (``--device cuda:0`` in a gloo group each rank starts
+   before the CLI, since NCCL refuses two ranks on one card; the CLI's
+   mesh is (1, 3), so the vp reduction runs over gloo).  The sets and
+   sorted rows must equal phase 4's, only rank 0 writes, and each rank's
+   kernel launches cover its batches; (b) 3 ranks sharing cuda:0 (gloo)
+   at an explicit Mesh(3, 1): ``sharded_common_counts`` of the phase-4
+   sketch through the dp ring (all-vs-all and 192 vs 64) must equal the
+   forced ``_int_mm`` counts, and the sharded ``DeviceSketcher`` on the
+   corpus must give phase 4's sets with each rank's launches covering
+   its batches.  Prints walls and every rank's sketch budget.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Catches nothing: any failure exits
@@ -64,6 +80,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -310,7 +327,8 @@ def main_path(device, work: str, n_genomes: int, genome_len: int
             "sketch_mbase_per_s": total / 1e6 / sketch_s,
             "rows": len(rows) - 1, "launches": launches, "budget": budget}
     ctx = {"files": files, "list": list_path, "shuf": shuf,
-           "shuf_path": shuf_path, "sketch": sketch_path, "sets": got}
+           "shuf_path": shuf_path, "sketch": sketch_path, "sets": got,
+           "rows": rows}
     return nums, ctx
 
 
@@ -636,6 +654,225 @@ def legacy(device, work: str, ctx: dict, c2: dict, reps: int = 10) -> dict:
     return nums
 
 
+# --------------------------------------------------------------------------
+# phase 9: several ranks under torchrun
+# --------------------------------------------------------------------------
+
+def torchrun(nproc: int, root: str, mode: str, timeout: float = 600
+             ) -> tuple[float, list[dict]]:
+    """This script's ``--rank <mode>`` under ``torchrun --standalone``
+    with ``nproc`` ranks, each reading ``root/<mode>.json`` and writing
+    ``root/<mode>.rank<r>.json``.  Returns (wall s, the reports in rank
+    order).  Any rank's failure fails it; on the deadline the launcher
+    and its ranks are killed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__), "--rank",
+           mode, root]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"torchrun {mode}: no end in {timeout} s") from None
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        sys.stderr.write(log[-8000:])
+        raise RuntimeError(f"torchrun {mode}: exit {proc.returncode}")
+    reports = []
+    for r in range(nproc):
+        with open(os.path.join(root, f"{mode}.rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return wall, reports
+
+
+def rank_cli(spec: dict) -> dict:
+    """Phase 9 (a), one rank: the CLI chain, the keep kernel's launches
+    counted from 0 around each command.  Ranks that share a device start
+    their gloo group first; the CLI then keeps it."""
+    from rabbitkssd_tpu_torch.ops.member import member
+    from rabbitkssd_tpu_torch.parallel.multihost import init_multihost
+    from rabbitkssd_tpu_torch.parallel.sharded import make_mesh
+
+    if spec["shared"]:
+        _require(init_multihost(cuda=False), "no process group")
+    steps = []
+    for step in spec["chain"]:
+        member.launches = 0
+        with _env(**step["env"]):
+            wall, err = run_cli(step["argv"])
+        steps.append({"name": step["name"], "wall_s": wall,
+                      "launches": member.launches, "budgets": _budgets(err),
+                      "saved": "save the sketches into" in err})
+    mesh = make_mesh()
+    return {"mesh": [mesh.dp, mesh.vp], "steps": steps}
+
+
+def rank_mesh(spec: dict, root: str) -> dict:
+    """Phase 9 (b), one of 3 ranks sharing one card (gloo only: NCCL
+    refuses two ranks on one card): the ring counts and the sharded
+    sketch at an explicit Mesh(3, 1)."""
+    import torch
+
+    from rabbitkssd_tpu_torch import resolve_device
+    from rabbitkssd_tpu_torch.engine.sketcher import sketch_file_list
+    from rabbitkssd_tpu_torch.host import read_shuffle_file
+    from rabbitkssd_tpu_torch.ops.member import member
+    from rabbitkssd_tpu_torch.parallel.multihost import init_multihost, rank
+    from rabbitkssd_tpu_torch.parallel.sharded import (Mesh,
+                                                       sharded_common_counts)
+
+    _require(init_multihost(cuda=False), "no process group")
+    device = resolve_device(spec["device"])
+    torch.ones(1, device=device).sum().item()  # the context, untimed
+    mesh = Mesh(3, 1)
+    hashes = _sketch_hashes(spec["sketch"])
+    n_ref = spec["n_ref"]
+    with _env(KSSD_HOST_JOIN_MAX="0"):  # the ring, not the host walk
+        t0 = time.perf_counter()
+        sym = sharded_common_counts(hashes, None, mesh, device)
+        ring_s = time.perf_counter() - t0
+        rq = sharded_common_counts(hashes[:n_ref], hashes[n_ref:], mesh,
+                                   device)
+    err = io.StringIO()
+    member.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        sk = sketch_file_list(spec["list"], read_shuffle_file(spec["shuf"]),
+                              device=device, mesh=mesh)
+    sketch_s = time.perf_counter() - t0
+    launches = member.launches
+    np.savez(os.path.join(root, f"mesh.rank{rank()}.npz"), sym=sym, rq=rq,
+             **{f"g{i}": s.hashes for i, s in enumerate(sk.sketches)})
+    (budget,) = _budgets(err.getvalue())
+    return {"mesh": [mesh.dp, mesh.vp], "coords": list(mesh.coords),
+            "ring_s": ring_s, "sketch_s": sketch_s, "launches": launches,
+            "budget": budget, "names": [s.name for s in sk.sketches]}
+
+
+def rank_main(mode: str, root: str) -> None:
+    """Entry of one phase-9 rank (``chip_smoke.py --rank <mode> <root>``,
+    started by :func:`torchrun`)."""
+    sys.path.insert(0, HERE)
+    from rabbitkssd_tpu_torch.parallel.multihost import shutdown
+
+    with open(os.path.join(root, f"{mode}.json")) as f:
+        spec = json.load(f)
+    report = rank_cli(spec) if mode == "cli" else rank_mesh(spec, root)
+    with open(os.path.join(root, f"{mode}.rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump(report, f)
+    shutdown()
+
+
+def _launches_cover(budget: dict, launches: int, on_card: bool, what: str
+                    ) -> None:
+    # on the card every batch and re-run launches the kernel once; a CPU
+    # rehearsal runs the plain version instead
+    want = budget["batches"] + budget["reruns"] if on_card else 0
+    _require(launches == want and budget["batches"] > 0,
+             f"{what}: {launches} launches for {budget['batches']} batches "
+             f"+ {budget['reruns']} re-runs")
+
+
+def ranks_cli(device, work: str, ctx: dict) -> dict:
+    """Phase 9 (a): the CLI sketch + alldist under torchrun, one rank per
+    card on several cards, else 3 ranks sharing cuda:0 (a CPU rehearsal:
+    the CPU) in a gloo group."""
+    import torch
+
+    root = os.path.join(work, "ranks_cli")
+    os.makedirs(root)
+    on_card = device.type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    shared = n_cards < 2
+    nproc = 3 if shared else n_cards
+    dev = ["--device", "cpu" if not on_card
+           else "cuda:0" if shared else "cuda"]
+    sk = os.path.join(root, "p9.sketch")
+    outs = {"alldist": os.path.join(root, "p9.alldist"),
+            "alldist_ring": os.path.join(root, "p9.ring.alldist")}
+    chain = [{"name": "sketch", "env": {},
+              "argv": dev + ["sketch", "-i", ctx["list"], "-o", sk, "-L",
+                             ctx["shuf_path"]]}]
+    for name, out in outs.items():
+        chain.append({"name": name, "argv": dev + [
+            "alldist", "-i", sk, "-o", out, "-D", MAX_DIST],
+            "env": {"KSSD_HOST_JOIN_MAX": "0"} if name == "alldist_ring"
+            else {}})
+    with open(os.path.join(root, "cli.json"), "w") as f:
+        json.dump({"chain": chain, "shared": shared}, f)
+    wall_a, reps_a = torchrun(nproc, root, "cli")
+    _require(sorted(os.listdir(root)) == sorted(
+        ["cli.json", "p9.sketch", "p9.sketch.dict", "p9.sketch.index",
+         *(os.path.basename(o) for o in outs.values()),
+         *(f"cli.rank{r}.json" for r in range(nproc))]),
+        f"(a) files: {sorted(os.listdir(root))}")
+    _require([rep["steps"][0]["saved"] for rep in reps_a]
+             == [r == 0 for r in range(nproc)], "(a) a rank > 0 saved")
+    got = _sets(sk)
+    _require(got.keys() == ctx["sets"].keys() and all(
+        np.array_equal(got[k], ctx["sets"][k]) for k in got),
+        "torchrun sketch sets != phase 4")
+    for name, out in outs.items():
+        _require(_sorted_rows(out) == ctx["rows"],
+                 f"torchrun {name} rows != phase 4")
+    for r, rep in enumerate(reps_a):
+        (budget,) = rep["steps"][0]["budgets"]
+        _launches_cover(budget, rep["steps"][0]["launches"], on_card,
+                        f"(a) rank {r} sketch")
+    return {"ranks": nproc, "device": dev[1], "mesh": reps_a[0]["mesh"],
+            "group": "gloo" if shared else "cpu:gloo,cuda:nccl",
+            "wall_s": wall_a, "steps": [rep["steps"] for rep in reps_a]}
+
+
+def ranks_mesh(device, work: str, ctx: dict) -> dict:
+    """Phase 9 (b): 3 ranks sharing cuda:0 (a CPU rehearsal: the CPU) at
+    Mesh(3, 1): the ring counts and the sharded sketch."""
+    from rabbitkssd_tpu_torch.ops.distance import common_counts
+
+    root = os.path.join(work, "ranks_mesh")
+    os.makedirs(root)
+    on_card = device.type == "cuda"
+    with open(os.path.join(root, "mesh.json"), "w") as f:
+        json.dump({"device": "cuda:0" if on_card else "cpu",
+                   "sketch": ctx["sketch"],
+                   "list": ctx["list"], "shuf": ctx["shuf_path"],
+                   "n_ref": N_REF}, f)
+    wall_b, reps_b = torchrun(3, root, "mesh")
+    hashes = _sketch_hashes(ctx["sketch"])
+    with _env(**DEVICE_COUNTING):
+        want = {"sym": common_counts(hashes, None, device),
+                "rq": common_counts(hashes[:N_REF], hashes[N_REF:], device)}
+    for r, rep in enumerate(reps_b):
+        z = np.load(os.path.join(root, f"mesh.rank{r}.npz"))
+        for k, v in want.items():
+            _require(np.array_equal(z[k], v),
+                     f"(b) rank {r} ring {k} counts != forced _int_mm")
+        _require(sorted(rep["names"]) == sorted(ctx["files"]),
+                 f"(b) rank {r} genome names")
+        for i, name in enumerate(rep["names"]):
+            _require(np.array_equal(z[f"g{i}"], ctx["sets"][name]),
+                     f"(b) rank {r} sketch of {name} != phase 4")
+        _launches_cover(rep["budget"], rep["launches"], on_card,
+                        f"(b) rank {r}")
+    return {"ranks": 3, "wall_s": wall_b,
+            "per_rank": [{k: rep[k] for k in ("coords", "ring_s", "sketch_s",
+                                              "launches", "budget")}
+                         for rep in reps_b]}
+
+
+def _sketch_hashes(path: str) -> list[np.ndarray]:
+    from rabbitkssd_tpu_torch.host import read_sketches
+
+    return [s.hashes for s in read_sketches(path).sketches]
+
+
 def int_mm_rate(device, rows: int = 8192, width: int = 32768,
                 reps: int = 10) -> dict:
     """int8 ops/s of torch._int_mm at a [rows, width] x [width, rows]
@@ -717,6 +954,16 @@ def main() -> None:
         print(f"[8 legacy] {json.dumps(lg)}")
         print("[8 legacy] card counts equal the walk's, card files equal "
               "the cpu files")
+        p9a = ranks_cli(device, work, ctx)
+        print(f"[9 ranks] (a) {json.dumps(p9a)}")
+        p9b = ranks_mesh(device, work, ctx)
+        print(f"[9 ranks] (b) {json.dumps(p9b)}")
+        print(f"[9 ranks] (a) torchrun x {p9a['ranks']} on {p9a['device']} "
+              f"({p9a['group']}, mesh {p9a['mesh']}): sets and rows (auto "
+              "and KSSD_HOST_JOIN_MAX=0) equal phase 4, one writer; (b) 3 ranks "
+              "on cuda:0 at Mesh(3, 1): ring counts equal the forced "
+              "_int_mm counts, sets equal phase 4; every rank launched the "
+              "kernel on every batch")
 
     rate = int_mm_rate(device)
     print(f"[6 int_mm] {json.dumps(rate)}")
@@ -739,4 +986,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(*sys.argv[2:4])
+    else:
+        main()

@@ -46,6 +46,8 @@ from rabbitkssd_tpu.utils.timers import progress_bar_size
 from ..ops.distance import (_memberships, _pair_counts_host, common_counts,
                             pair_counts)
 from ..ops.intersect import common_counts_sorted
+from ..parallel.multihost import world
+from ..parallel.sharded import make_mesh, sharded_common_counts
 from ..utils.timers import phase
 
 MAX_SINGLE_FILE = 1 << 32  # 4 GiB split threshold (dist.cpp:277,711)
@@ -771,7 +773,8 @@ class _CsrIndex:
 
 def _load_csr(sketch_path: str | None, use64: bool,
               payload_nnz: int = 0) -> _CsrIndex | None:
-    """Load the persisted index.
+    """Load the persisted index for single-process runs (a multi-rank
+    run counts on its mesh, which keeps its own vocabulary split).
 
     KSSD_USE_INDEX: ``0`` never, ``1`` always, unset = auto.  Auto
     consumes the index unless it is a 32-bit DENSE index (one slot per
@@ -782,6 +785,8 @@ def _load_csr(sketch_path: str | None, use64: bool,
     """
     mode = os.environ.get("KSSD_USE_INDEX", "auto")
     if sketch_path is None or mode == "0":
+        return None
+    if mode != "1" and world() > 1:
         return None
     if mode != "1" and not use64:
         try:
@@ -814,8 +819,19 @@ def _small_n_walk() -> bool:
     O(n^2 * vocab) operations + an [n, vocab] build, and at low-drlevel
     configs the vocab is millions wide while the posting-walk join is
     memory-speed increments.  ``KSSD_DIST_PATH=matmul`` keeps the
-    membership matmul."""
+    membership matmul.  A multi-rank run never builds it: below one
+    block it counts on its mesh (:func:`_counts`)."""
+    if world() > 1:
+        return False
     return os.environ.get("KSSD_DIST_PATH", "auto") != "matmul"
+
+
+def _counts(hashes0, hashes1, device) -> np.ndarray:
+    """Intersection counts: on the mesh of every rank in a multi-rank
+    run (dp rows x vp vocabulary), on ``device`` alone otherwise."""
+    if world() > 1:
+        return sharded_common_counts(hashes0, hashes1, make_mesh(), device)
+    return common_counts(hashes0, hashes1, device)
 
 
 def _use_sparse_strip(layout_pack, bi: int, n1: int, col_lo: int,
@@ -892,7 +908,7 @@ def _auto_block(n_cols: int = 0) -> int:
     return block
 
 
-def run_alldist(sk: SketchSet, output_file: str, max_dist: float,
+def run_alldist(sk: SketchSet, output_file: str | None, max_dist: float,
                 containment: bool, device,
                 index_path: str | None = None) -> None:
     """command_alldist engine (reference subCommand.cpp:149-200).
@@ -909,6 +925,9 @@ def run_alldist(sk: SketchSet, output_file: str, max_dist: float,
     dist.cpp:83-130) instead of rebuilding membership from raw hashes.
 
     device: the torch device that runs matmul counting.
+
+    output_file None: count, write nothing — a rank of a multi-rank run
+    that does not write (the CLI decides which rank writes).
     """
     device = torch.device(device)
     hashes = [s.hashes for s in sk.sketches]
@@ -916,6 +935,11 @@ def run_alldist(sk: SketchSet, output_file: str, max_dist: float,
     names = [s.name for s in sk.sketches]
     n = len(hashes)
     block = _auto_block(n)
+    if output_file is None and n > block:
+        # a blocked run counts on each rank alone and issues no
+        # collective, so a rank without output has nothing to do; a
+        # collective added to the blocked path would wait for ever here
+        return
     csr = _load_csr(index_path, sk.use64,
                     payload_nnz=int(sum(h.size for h in hashes)))
     if n <= block:
@@ -932,9 +956,10 @@ def run_alldist(sk: SketchSet, output_file: str, max_dist: float,
             else:
                 common = csr.counts(pairs, pairs, n, n, device)
         else:
-            common = common_counts(hashes, None, device)
-        rows = alldist_rows(sk, common, kmer_size, max_dist, containment)
-        _write_rows(rows, names, output_file)
+            common = _counts(hashes, None, device)
+        if output_file is not None:
+            _write_rows(alldist_rows(sk, common, kmer_size, max_dist,
+                                     containment), names, output_file)
         return
 
     sizes = np.array([s.size for s in sk.sketches], np.int64)
@@ -1107,7 +1132,7 @@ def run_dist_legacy(ref: SketchSet, query: SketchSet, output_file: str,
                                 f"{rh[j].size}\t{jac:.6f}\t{d:.6f}\n")
 
 
-def run_dist(ref: SketchSet, query: SketchSet, output_file: str,
+def run_dist(ref: SketchSet, query: SketchSet, output_file: str | None,
              max_dist: float, containment: bool, device,
              max_neighbor: int = 0,
              ref_index_path: str | None = None) -> None:
@@ -1122,6 +1147,8 @@ def run_dist(ref: SketchSet, query: SketchSet, output_file: str,
     dist.cpp:442-523) instead of recomputing ref membership.
 
     device: the torch device that runs matmul counting.
+
+    output_file None: count, write nothing (see :func:`run_alldist`).
     """
     device = torch.device(device)
     qh = [s.hashes for s in query.sketches]
@@ -1129,6 +1156,8 @@ def run_dist(ref: SketchSet, query: SketchSet, output_file: str,
     kmer_size = 2 * ref.info.half_k
     nq, nr = len(qh), len(rh)
     block = _auto_block(nr)
+    if output_file is None and (nq > block or nr > block):
+        return  # blocked: rank-local counting only (see run_alldist)
     csr = _load_csr(ref_index_path, ref.use64,
                     payload_nnz=int(sum(h.size for h in rh)))
 
@@ -1159,10 +1188,11 @@ def run_dist(ref: SketchSet, query: SketchSet, output_file: str,
             common = np.zeros((nq, nr), np.int32)
             blk_counts(common, 0, nq)
         else:
-            common = common_counts(qh, rh, device)
-        rows = dist_rows(ref, query, common, kmer_size, max_dist,
-                         containment, max_neighbor)
-        _write_rows(rows, [s.name for s in query.sketches], output_file)
+            common = _counts(qh, rh, device)
+        if output_file is not None:
+            rows = dist_rows(ref, query, common, kmer_size, max_dist,
+                             containment, max_neighbor)
+            _write_rows(rows, [s.name for s in query.sketches], output_file)
         return
 
     def count_strip(strip, q0):

@@ -9,6 +9,10 @@ flush window, on a flusher thread, and :class:`GenomeFinalizer` dedups
 each genome as the tape passes its end.  Capacity overflow is detected
 exactly and the window re-runs at full capacity, so results are exact.
 
+In a multi-rank run :class:`DeviceSketcher` splits each batch across
+the ranks of a torch.distributed mesh (one process per device) and
+all-gathers their survivors at each flush.
+
 Device differences from the JAX step: the keep test is always the
 bitmap kernel (ops/member.py), so the sorted-space branch is gone;
 torch has no dropping scatter, so both rank scatters write rejects to a
@@ -19,6 +23,7 @@ device-computed indices, so no step syncs with the host.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,6 +45,8 @@ from ..device import resolve_device
 from ..ops.kmer import StreamHasher, encode_concat, pack_words_np, \
     pad_exceptions
 from ..ops.member import keep_tables, member
+from ..parallel.multihost import local_world, rank
+from ..parallel.sharded import Mesh, allgather_columns, any_rank, make_mesh
 
 # batches per carry-buffer drain: bounds the pending batches' device
 # words kept for the overflow re-run, and lets flush + finalize overlap
@@ -185,6 +192,8 @@ class _TapeBatch:
     exc: np.ndarray  # int32[k] invalid positions, halo'd-row flat coords
     base: int  # tape offset of this batch's first payload position
     valid_upto: int  # payload coords >= this are invalid (tape tail)
+    end: int  # tape offset the whole batch covers up to (base +
+    # valid_upto of the feeder's batch; a shard keeps it)
 
 
 class WordTapeFeeder:
@@ -390,11 +399,13 @@ class WordTapeFeeder:
             tail = flat[WP:].copy()
             exc_tape = np.concatenate([halo_exc, self._take_exc(base + P)])
             halo_exc = exc_tape[exc_tape >= base + P - self.halo]
+            valid_upto = min(self._avail - base, P)
             yield _TapeBatch(
                 words=rows,
                 exc=self._exc_to_flat(exc_tape, base),
                 base=base,
-                valid_upto=min(self._avail - base, P),
+                valid_upto=valid_upto,
+                end=base + valid_upto,
             )
             base += P
             if self._exhausted and self._avail <= base:
@@ -491,13 +502,40 @@ class _AsyncFlusher:
 # sketcher
 # --------------------------------------------------------------------------
 
+def _device_scope(device: torch.device):
+    """Make ``device`` current on this thread: CUDA keeps the current
+    device per thread, and a helper thread starts on cuda:0."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class DeviceSketcher:
-    """Streams genomes through the stream step on one torch device."""
+    """Streams genomes through the stream step on one torch device.
+
+    On a mesh of several ranks (port of the JAX ``ShardedSketcher`` and
+    its ``make_sharded_stream_step``) every rank runs the same
+    deterministic feeder over ``mesh.size * n_blocks`` rows, so batch
+    and flush counts are equal on every rank and the collectives pair
+    up.  Rank s uploads only its ``n_blocks`` rows and runs
+    :class:`StreamStep` on them into its own carry buffers.  At each
+    flush (on the flusher thread, in window order; the stream loop
+    issues no collective) the ranks OR their overflow flags — on
+    overflow each re-runs its own rows of the window at full capacity —
+    and all-gather their (hash, tape position) survivors, so every rank
+    finalizes every genome and returns the same sketches.
+    ``last_budget`` is this rank's, with the gather's seconds under
+    ``exchange``.  ``mesh`` defaults to every rank of the process group
+    (:func:`make_mesh`): one shard in a single process.
+    """
 
     def __init__(self, params: KssdParams, shuffled_dim: np.ndarray,
                  device, n_blocks: int = 16, block: int = 1 << 17,
                  least_qual: int = 0, least_num_kmer: int = 1,
-                 buf_cap: int = 1 << 23, threads: int = 0):
+                 buf_cap: int = 1 << 23, threads: int = 0,
+                 mesh: Mesh | None = None):
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.mesh.check_world()
         self.device = resolve_device(device)
         self.params = params
         self.least_qual = least_qual
@@ -533,6 +571,35 @@ class DeviceSketcher:
                     e.pin_memory().to(self.device, non_blocking=True))
         return w, e
 
+    def _local(self, b: _TapeBatch) -> _TapeBatch:
+        """This rank's shard of a feeder batch, sliced on the host before
+        the upload."""
+        if self.mesh.size == 1:
+            return b
+        s, nb = rank(), self.n_blocks
+        payload = nb * self.block
+        flat = nb * (self.block + aligned_halo(self.params))
+        # flat coords are row-major over all mesh.size * n_blocks rows
+        mine = b.exc // flat == s
+        return _TapeBatch(
+            words=b.words[s * nb : (s + 1) * nb],
+            exc=b.exc[mine] - s * flat,
+            base=b.base + s * payload,
+            valid_upto=int(np.clip(b.valid_upto - s * payload, 0, payload)),
+            end=b.end)
+
+    def _merge(self, hash_chunks: list, pos_chunks: list) -> None:
+        """Replace this rank's survivor chunks by every rank's."""
+        h = (np.concatenate(hash_chunks) if hash_chunks
+             else np.empty(0, np.uint64))
+        pos = (np.concatenate(pos_chunks) if pos_chunks
+               else np.empty(0, np.int64))
+        dt = np.uint64 if self.params.use64 else np.uint32
+        every = allgather_columns(
+            np.stack([h.astype(np.uint64).view(np.int64), pos]))
+        hash_chunks[:] = [x[0].view(np.uint64).astype(dt) for x in every]
+        pos_chunks[:] = [x[1] for x in every]
+
     # -- core ---------------------------------------------------------------
     def sketch_codes(self, genome_codes: Iterator[np.ndarray]
                      ) -> tuple[list[np.ndarray], int]:
@@ -547,8 +614,8 @@ class DeviceSketcher:
         halo = aligned_halo(p)
         payload = self.n_blocks * self.block
         flat_size = self.n_blocks * (self.block + halo)
-        feeder = WordTapeFeeder(genome_codes, self.n_blocks, self.block,
-                                halo)
+        feeder = WordTapeFeeder(genome_codes, self.mesh.size * self.n_blocks,
+                                self.block, halo)
         pos_chunks: list[np.ndarray] = []
         hash_chunks: list[np.ndarray] = []
         finalizer = GenomeFinalizer(feeder, p, self.least_num_kmer)
@@ -562,7 +629,7 @@ class DeviceSketcher:
         B = {"feed": 0.0, "h2d_put": 0.0, "qwait": 0.0, "dispatch": 0.0,
              "flush_scalars": 0.0, "flush_collect": 0.0, "finalize": 0.0,
              "drain": 0.0, "wall": 0.0, "h2d_bytes": 0, "batches": 0,
-             "reruns": 0}
+             "reruns": 0, "exchange": 0.0}
         t_start = _pc()
 
         def collect(cur_bufs, cur_count, pending_batches):
@@ -587,31 +654,37 @@ class DeviceSketcher:
             pos_chunks.append(base[bidx] + pos)
             B["flush_collect"] += _pc() - t0
 
+        def rerun(pending_batches):
+            """Exact fallback: re-run the window one batch at a time at
+            full capacity (dense compaction, cap = payload)."""
+            full = StreamStep(p, payload, max(self.buf_cap, 2 * payload),
+                              compaction="dense")
+            for b in pending_batches:
+                fb, fc, fo = self._fresh_buffers(full.buf_cap)
+                fc, fo = full(b.words, b.exc, self.tables, fb, fc, fo, 0,
+                              b.valid_upto)
+                if bool(fo):
+                    raise RuntimeError(
+                        "sketch capacity overflow in fallback path")
+                collect(fb, fc, [b])
+                B["reruns"] += 1
+
         def flush(cur, pending_batches):
             cur_bufs, cur_count, cur_overflow = cur
+            with _device_scope(self.device):
+                t0 = _pc()
+                oflow = any_rank(bool(cur_overflow))
+                B["flush_scalars"] += _pc() - t0
+                if oflow:
+                    rerun(pending_batches)
+                else:
+                    collect(cur_bufs, cur_count, pending_batches)
+            if self.mesh.size > 1:
+                t0 = _pc()
+                self._merge(hash_chunks, pos_chunks)
+                B["exchange"] += _pc() - t0
             t0 = _pc()
-            oflow = bool(cur_overflow)
-            B["flush_scalars"] += _pc() - t0
-            if oflow:
-                # exact fallback: re-run this window one batch at a time at
-                # full capacity (dense compaction, cap = payload)
-                full = StreamStep(p, payload, max(self.buf_cap, 2 * payload),
-                                  compaction="dense")
-                for b in pending_batches:
-                    fb, fc, fo = self._fresh_buffers(full.buf_cap)
-                    fc, fo = full(b.words, b.exc, self.tables, fb, fc, fo,
-                                  0, b.valid_upto)
-                    if bool(fo):
-                        raise RuntimeError(
-                            "sketch capacity overflow in fallback path")
-                    collect(fb, fc, [b])
-                    B["reruns"] += 1
-            else:
-                collect(cur_bufs, cur_count, pending_batches)
-            t0 = _pc()
-            finalizer.add(hash_chunks, pos_chunks,
-                          pending_batches[-1].base
-                          + pending_batches[-1].valid_upto)
+            finalizer.add(hash_chunks, pos_chunks, pending_batches[-1].end)
             B["finalize"] += _pc() - t0
 
         # producer thread: feed + pinned upload overlap device execution
@@ -620,21 +693,23 @@ class DeviceSketcher:
         def producer():
             try:
                 it = iter(feeder)
-                while True:
-                    t0 = _pc()
-                    batch = next(it, None)
-                    B["feed"] += _pc() - t0
-                    if batch is None:
-                        break
-                    t0 = _pc()
-                    dw, de = self._upload(batch, flat_size)
-                    B["h2d_put"] += _pc() - t0
-                    B["h2d_bytes"] += batch.words.nbytes
-                    B["batches"] += 1
-                    # the pending batch keeps only its device tensors, for
-                    # the rare overflow re-run
-                    batch.words, batch.exc = dw, de
-                    q.put(batch)
+                with _device_scope(self.device):
+                    while True:
+                        t0 = _pc()
+                        batch = next(it, None)
+                        B["feed"] += _pc() - t0
+                        if batch is None:
+                            break
+                        batch = self._local(batch)
+                        t0 = _pc()
+                        dw, de = self._upload(batch, flat_size)
+                        B["h2d_put"] += _pc() - t0
+                        B["h2d_bytes"] += batch.words.nbytes
+                        B["batches"] += 1
+                        # the pending batch keeps only its device tensors,
+                        # for the rare overflow re-run
+                        batch.words, batch.exc = dw, de
+                        q.put(batch)
             except BaseException as e:  # surface in consumer
                 q.put(e)
                 return
@@ -712,8 +787,10 @@ class DeviceSketcher:
             return pk
 
         def gen() -> Iterator:
-            # bounded parallel parse (the native parser releases the GIL)
-            workers = self.threads or min(8, os.cpu_count() or 1)
+            # bounded parallel parse (the native parser releases the GIL);
+            # every rank of a node parses the whole corpus: share its cores
+            workers = self.threads or min(
+                8, max(1, (os.cpu_count() or 1) // local_world()))
             depth = 2 * workers
             with ThreadPoolExecutor(max_workers=workers) as ex:
                 futs: list = []
@@ -841,7 +918,7 @@ def sketch_file_list(list_path: str, shuf, device, least_qual: int = 0,
     The input list must classify as fasta or fastq (sniffers mirror
     sketch.cpp:68-161); quality/abundance thresholds apply only on the
     fastq path, as in the reference.  ``kw`` goes to DeviceSketcher
-    (n_blocks, block, buf_cap).
+    (n_blocks, block, buf_cap, mesh).
     """
     from rabbitkssd_tpu.seqio import classify_list, read_list
 

@@ -12,8 +12,9 @@ from rabbitkssd_tpu.native import load_native
 from rabbitkssd_tpu.oracle import oracle_hashes_numpy
 from rabbitkssd_tpu.params import KssdParams
 from rabbitkssd_tpu.seqio import read_records
-from rabbitkssd_tpu.shuffle import generate_shuffle, write_shuffle_file
+from rabbitkssd_tpu.shuffle import (generate_shuffle, read_shuffle_file,
+                                    write_shuffle_file)
 
 __all__ = ["KssdParams", "generate_shuffle", "load_native",
-           "oracle_hashes_numpy", "read_records", "read_sketches",
-           "write_shuffle_file"]
+           "oracle_hashes_numpy", "read_records", "read_shuffle_file",
+           "read_sketches", "write_shuffle_file"]

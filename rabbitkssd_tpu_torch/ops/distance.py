@@ -133,6 +133,15 @@ def _membership(g: np.ndarray, c: np.ndarray, rows: int, width: int,
     return m
 
 
+def membership_budget(device: torch.device) -> int:
+    """Bytes the int8 membership matrices of one vocabulary chunk may
+    take: a quarter of the card's free memory, or a fixed budget on a
+    CPU device."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] // 4
+    return _CPU_MEM_BYTES
+
+
 def pair_counts(g0, c0, g1, c1, n0: int, n1: int, n_vocab: int, device,
                 chunk: int | None = None, symmetric: bool = False
                 ) -> np.ndarray:
@@ -158,9 +167,7 @@ def pair_counts(g0, c0, g1, c1, n0: int, n1: int, n_vocab: int, device,
 
     n0p, n1p = _r32(n0), _r32(n1)
     if chunk is None:
-        budget = (torch.cuda.mem_get_info(device)[0] // 4
-                  if device.type == "cuda" else _CPU_MEM_BYTES)
-        chunk = budget // (n0p + n1p)
+        chunk = membership_budget(device) // (n0p + n1p)
     width = max(32, min(chunk, _r32(n_vocab)) // 32 * 32)
     acc = torch.zeros((n0p, n1p), dtype=torch.int32, device=device)
     for lo in range(0, n_vocab, width):

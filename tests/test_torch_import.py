@@ -23,6 +23,8 @@ PORT_MODULES = [
     "rabbitkssd_tpu_torch.ops.intersect",
     "rabbitkssd_tpu_torch.engine.sketcher",
     "rabbitkssd_tpu_torch.engine.dist_engine",
+    "rabbitkssd_tpu_torch.parallel.multihost",
+    "rabbitkssd_tpu_torch.parallel.sharded",
     "rabbitkssd_tpu_torch.utils.timers",
     "rabbitkssd_tpu_torch.utils.trace_report",
 ]
