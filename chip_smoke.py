@@ -7,33 +7,47 @@
 Phases, each printing its own lines:
 
 1. card: name, and name + power limit from nvidia-smi;
-2. build: the keep-test kernel (csrc/member.cu) with nvcc, timed;
-3. kernel vs plain: the bitmap keep test against its plain PyTorch
-   version on the card at the stream step's shape (16 x (2^17 + 32)
-   dims plus edge values), for an L3 (4096 kept dims) and an L2 (65536
-   kept dims) kept set: masks must be exactly equal; CUDA-event times
-   taken in turns (plain, kernel, kernel, plain);
+2. build: the three kernels (csrc/member.cu, csrc/stream_keep.cu,
+   csrc/stream_compact.cu), one nvcc process each, all started
+   together, timed;
+3. kernels vs plain, on the card, for an L3 (L3K10, 4096 kept dims) and
+   an L2 (L2K8, 65536 kept dims) kept set; everything compared must be
+   exactly equal; CUDA-event times taken in turns (plain, kernel,
+   kernel, plain): (a) the bitmap keep test (member.cu) at the stream
+   step's shape (16 x (2^17 + 32) dims plus edge values), with one
+   indexing call on a bool kept-dims table as its library time;
+   (b) the stream step's kernels at its shape (16 rows x (2^17 + halo)
+   windows, and 2^17 - 16 payload windows a row, where 32-window groups
+   straddle rows): ``stream_keep`` against the plain window hash + keep
+   test + bit packing, ``stream_compact`` against the plain compaction
+   in sparse and dense mode, under forced overflow (cap 64) and with a
+   near-full buffer, and on a dense kept table (half the dims kept), so
+   that in sparse mode more groups are flagged than g_cap; and the whole
+   step, the new one against a reconstruction of the earlier eager step
+   (window hash + member.cu, then this version's plain compaction);
 4. main path: a synthetic bacterial corpus (256 genomes x ~2 Mb, seed
    2024) through the CLI's ``sketch`` then ``alldist -D 0.05`` at L3K10
    on the card; prints walls, Mbase/s, the sketcher's budget and the
-   kernel's launch count, which must cover every batch;
+   kernels' launch counts: the two stream kernels' must each cover every
+   batch and re-run, member.cu is off the path (0 launches);
 5. correctness: (a) three genomes' sketches equal the numpy oracle;
    (b) a device-counting alldist (KSSD_DIST_PATH=matmul,
    KSSD_HOST_JOIN_MAX=0) gives the same rows as the auto run; (c) the
    golden fa.list sketches and alldist rows of the reference binary;
    (d) with a per-batch cap of 64 survivors, every batch of three
    corpus genomes overflows on the card, and the exact re-run gives the
-   main path's hash sets;
+   main path's hash sets (the stream kernels launch twice a batch);
 6. the walk/matmul cost model's two rates: ``torch._int_mm`` int8 ops/s
    at an alldist strip shape, and the native posting walk's
    increments/s counting the corpus sketch all-vs-all;
 7. profile: the CLI sketch once more, warm, under ``torch.profiler``
-   (``KSSD_PROFILE_DIR``), and the sketch trace's device busy share and
-   device time by kernel (utils/trace_report.py);
+   (``KSSD_PROFILE_DIR``), and the sketch trace's device busy share,
+   device events and ``dispatch`` per batch and device time by kernel
+   (utils/trace_report.py);
 8. config 2 (BASELINE.json): the phase-4 corpus split into 192 reference
    and 64 query genomes, through the CLI on the card:
    (a) ``dist -r ref.list -q query.list -L L3K10.shuf -D 0.05``, both
-   sides sketched from FASTA: the kernel's launches equal both
+   sides sketched from FASTA: each stream kernel's launches equal both
    sketches' batches + re-runs, and both sketches' sets equal phase 4's;
    (b) the same dist with device counting forced (KSSD_DIST_PATH=matmul,
    KSSD_HOST_JOIN_MAX=0) on (a)'s sketches gives (a)'s rows;
@@ -58,18 +72,21 @@ Phases, each printing its own lines:
    before the CLI, since NCCL refuses two ranks on one card; the CLI's
    mesh is (1, 3), so the vp reduction runs over gloo).  The sets and
    sorted rows must equal phase 4's, only rank 0 writes, and each rank's
-   kernel launches cover its batches; (b) 3 ranks sharing cuda:0 (gloo)
+   stream-kernel launches cover its batches; (b) 3 ranks sharing cuda:0 (gloo)
    at an explicit Mesh(3, 1): ``sharded_common_counts`` of the phase-4
    sketch through the dp ring (all-vs-all and 192 vs 64) must equal the
    forced ``_int_mm`` counts, and the sharded ``DeviceSketcher`` on the
-   corpus must give phase 4's sets with each rank's launches covering
-   its batches.  Prints walls and every rank's sketch budget.
+   corpus must give phase 4's sets with each rank's stream-kernel
+   launches covering its batches.  Prints walls and every rank's sketch
+   budget.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Catches nothing: any failure exits
 non-zero.  Without a CUDA card, or outside the repository, it exits 1
-before printing a result.  Imports only the port (``rabbitkssd_tpu_torch``;
-its ``host`` module carries the host helpers shared with the JAX package).
+before printing a result.  Imports only the port (``rabbitkssd_tpu_torch``),
+which carries its own copies of the host modules it needs (its ``host``
+module gathers the helpers this script uses) and imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -97,11 +114,46 @@ SEED = 2024
 MAX_DIST = "0.05"
 # one stream-step batch of L3K10 windows: 16 rows x (2^17 + halo 32)
 STEP_DIMS = 16 * ((1 << 17) + 32)
+# each kernel's source under rabbitkssd_tpu_torch/csrc
+SOURCES = {"member_bitmap": "member.cu", "stream_keep": "stream_keep.cu",
+           "stream_compact": "stream_compact.cu"}
 # config 2: the first N_REF corpus genomes are the reference side
 N_REF = 192
 TOP_N = 10
 # counting forced onto the device (int8 memberships, torch._int_mm)
 DEVICE_COUNTING = {"KSSD_DIST_PATH": "matmul", "KSSD_HOST_JOIN_MAX": "0"}
+# one H100 SXM's peak rates, for each kernel's bound (NVIDIA's data
+# sheet): HBM3 at 3.35 TB/s, and 32-bit lane operations at half the 67
+# TFLOP/s of float32 FMA, i.e. 132 SMs x 128 lanes x 1.98 GHz: an SM's
+# four schedulers issue one 32-lane instruction a clock each, so no mix
+# of 32-bit integer instructions (ALU pipe, or IMAD-class on the FMA
+# pipe) runs faster
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 2
+# 32-bit operations a window that the keep test needs, whatever one
+# design performs: with the forward and reverse-complement codes rolled
+# along the row, the next base (2), the forward update (4: a 64-bit
+# shift by 2, an OR, the mask), the reverse-complement update (5), the
+# canonical minimum (4: a 64-bit compare and select), dim_id (2), the
+# K-window validity (2: a rolled run length), the valid_upto test (1),
+# the bitmap probe's word index and bit (4), the tests' AND (2)
+KEEP_OPS_PER_WINDOW = 26
+# of member.cu a dim (range test, word offset, shift, mask, store)
+MEMBER_OPS_PER_DIM = 6
+# of stream_compact a keep word (two loads, a compare, a popcount, two
+# adds) and a survivor (bit scan, row and window offsets, the window
+# hash as in stream_keep, table index, composition, four slot writes)
+COMPACT_OPS_PER_WORD = 6
+COMPACT_OPS_PER_SURVIVOR = 80
+
+
+def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of bytes over HBM rate and
+    32-bit operations over the 32-bit lane rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def _die(msg: str) -> None:
@@ -175,7 +227,9 @@ def _events_ms(fn, reps: int) -> float:
 
 def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
                     seed: int, reps: int = 50) -> dict:
-    """Kernel vs plain keep test on one kept set; exact equality."""
+    """Kernel vs plain keep test on one kept set; exact equality.  The
+    library time is ``kept_lut[dims]`` on the in-range dims (all but the
+    5 edge values), one indexing call on a bool table of dim_size."""
     import torch
 
     from rabbitkssd_tpu_torch.host import generate_shuffle
@@ -199,19 +253,227 @@ def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
     _require(torch.equal(got, want), "kernel mask != plain mask")
     _require(np.array_equal(got.cpu().numpy(), oracle),
              "kernel mask != table[d] < dim_end")
-    n_kept = int(((table >= 0) & (table < dim_end)).sum())
+    kept = (table >= 0) & (table < dim_end)
+    n_kept = int(kept.sum())
     if device.type != "cuda":
         return {"kept": n_kept, "max_abs_err": err}
-    for _ in range(10):  # warm up both (and the clocks)
+    lut = torch.from_numpy(kept).to(device)
+    inside_dims = dims[5:].long()
+    _require(torch.equal(lut[inside_dims], want[5:]), "kept_lut[d] != plain")
+    for _ in range(10):  # warm up (and the clocks)
         member(dims, bitmap, dim_size)
         member_plain(dims, bitmap, dim_size)
+        lut[inside_dims]
     p1 = _events_ms(lambda: member_plain(dims, bitmap, dim_size), reps)
     k1 = _events_ms(lambda: member(dims, bitmap, dim_size), reps)
     k2 = _events_ms(lambda: member(dims, bitmap, dim_size), reps)
     p2 = _events_ms(lambda: member_plain(dims, bitmap, dim_size), reps)
+    lib = _events_ms(lambda: lut[inside_dims], reps)
+    # dims in, mask out, the bitmap read once
+    bound, by = _bound(5 * d.size + bitmap.numel() * 4,
+                       MEMBER_OPS_PER_DIM * d.size)
     return {"kept": n_kept, "n": int(d.size), "max_abs_err": err,
             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "library_ms": lib, "bound_ms": bound, "bound_by": by,
             "ms_turns": [p1, k1, k2, p2]}
+
+
+def _step_batch(params, block: int, seed: int):
+    """One stream-step batch at the main path's shape: 16 word rows of
+    ``block`` payload + halo random bases with ~0.5 % N runs, its
+    exception list and its valid mask (numpy seed)."""
+    import torch
+
+    from rabbitkssd_tpu_torch.engine.sketcher import aligned_halo
+    from rabbitkssd_tpu_torch.ops.kmer import pack_words_np, pad_exceptions
+
+    rng = np.random.default_rng(seed)
+    nb, L = 16, block + aligned_halo(params)
+    codes = rng.integers(0, 4, size=nb * L, dtype=np.int8)
+    for st in rng.integers(0, nb * L - 64, size=nb * L // 4000):
+        codes[st: st + int(rng.integers(1, 40))] = -1
+    flat, _, exc = pack_words_np(codes)
+    words = np.concatenate([flat.reshape(nb, L // 16),
+                            np.zeros((nb, 2), np.uint32)], axis=1)
+    exc = torch.from_numpy(pad_exceptions(exc, nb * L).astype(np.int64))
+    valid = torch.ones(nb * L + 1, dtype=torch.bool)
+    valid.index_fill_(0, exc, False)
+    return torch.from_numpy(words.view(np.int32)), exc, valid
+
+
+def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
+                            drlevel: int, seed: int, reps: int = 30
+                            ) -> dict:
+    """Phase 3 (b): stream_keep and stream_compact against their plain
+    versions at the stream step's shape, bit for bit, and their times;
+    the whole step, new against a reconstruction of the earlier eager
+    step."""
+    import torch
+
+    from rabbitkssd_tpu_torch.engine.sketcher import DeviceSketcher
+    from rabbitkssd_tpu_torch.host import KssdParams, generate_shuffle
+    from rabbitkssd_tpu_torch.ops.member import keep_tables, member
+    from rabbitkssd_tpu_torch.ops.stream import (compact_append,
+                                                 compact_append_plain,
+                                                 keep_words,
+                                                 keep_words_plain,
+                                                 pack_bits, unpack_bits)
+
+    params = KssdParams(half_k, half_subk, drlevel)
+    shuf = generate_shuffle(half_k, half_subk, drlevel)
+    sk = DeviceSketcher(params, shuf.shuffled_dim, device)
+    table, bitmap = sk.tables
+    step = sk.step
+    h, halo, cap, buf_cap = step.hasher, step.halo, sk.cap, sk.buf_cap
+    on_card = device.type == "cuda"
+    # a dense kept table (about half the dims kept): in sparse mode far
+    # more 32-window groups are flagged than g_cap, so the group cut runs
+    dense = keep_tables(np.random.default_rng(seed).integers(
+        0, 2 * params.dim_end, size=params.dim_size).astype(np.int32),
+        params.dim_end, device)
+    # (cap, buf_cap, starting count) a kept set: the main path's, forced
+    # overflow, a near-full buffer; on the dense table a cap above the
+    # survivors of the first g_cap groups, so that only the cut overflows
+    cases = {"shuffled": ((cap, buf_cap, 777), (64, 1 << 12, 0),
+                          (cap, buf_cap, buf_cap - cap + 9)),
+             "dense": ((1 << 17, 1 << 19, 5), (cap, buf_cap, 777))}
+    out = {"cap": cap, "buf_cap": buf_cap, "cases": []}
+    for block in (1 << 17, (1 << 17) - 16):
+        words, exc, valid = _step_batch(params, block, seed + block)
+        words, exc, valid = (t.to(device) for t in (words, exc, valid))
+        n = words.shape[0] * block
+        upto = n - 12345  # a tape tail
+        g_cap = (min(n // 32, max(4096, 4 * (n >> 4 * drlevel) // 32))
+                 if drlevel >= 3 and n % 32 == 0 else None)
+        modes = [g_cap] + ([None] if g_cap is not None else [])
+        for kept, (tab, bm) in (("shuffled", (table, bitmap)),
+                                ("dense", dense)):
+            kw = keep_words(words, valid, upto, h, halo, bm)
+            kw_plain = keep_words_plain(words, valid, upto, h, halo, bm)
+            _require(torch.equal(kw, kw_plain), f"stream_keep != plain "
+                     f"(block {block}, {kept} kept set)")
+            survivors = int(unpack_bits(kw, n).sum())
+            n_sel = int((kw != 0).sum())
+            _require(kept == "shuffled" or g_cap is None or n_sel > g_cap,
+                     f"dense kept set flags {n_sel} groups, g_cap {g_cap}")
+            for mode in modes:
+                for c, bc, c0 in cases[kept]:
+                    res = []
+                    for fn in (compact_append, compact_append_plain):
+                        bufs = tuple(torch.zeros(bc, dtype=torch.int32,
+                                                 device=device)
+                                     for _ in range(4))
+                        cnt, ofl = fn(kw, words, tab, bufs,
+                                      torch.tensor(c0, dtype=torch.int32,
+                                                   device=device),
+                                      torch.zeros((), dtype=torch.bool,
+                                                  device=device),
+                                      3, h, halo, c, bc, mode)
+                        k = int(cnt)
+                        res.append((k, bool(ofl),
+                                    [b[:k].cpu() for b in bufs]))
+                    (kc, ko, kb), (pc, po, pb) = res
+                    _require((kc, ko) == (pc, po) and all(
+                        torch.equal(x, y) for x, y in zip(kb, pb)),
+                        f"stream_compact != plain (block {block}, {kept} "
+                        f"kept set, g_cap {mode}, cap {c}, count {c0}): "
+                        f"{(kc, ko)} vs {(pc, po)}")
+                    out["cases"].append({
+                        "block": block, "kept": kept, "g_cap": mode,
+                        "flagged_groups": n_sel, "survivors": survivors,
+                        "cap": c, "count0": c0, "count": kc,
+                        "overflow": ko})
+    out["max_abs_err"] = 0  # every comparison above is exact equality
+    if not on_card:
+        return out
+
+    # times at the main path's shape (block 2^17, its cap and mode)
+    words, exc, valid = (t.to(device) for t in
+                         _step_batch(params, 1 << 17, seed))
+    n = words.shape[0] * (1 << 17)
+    g_cap = (min(n // 32, max(4096, 4 * (n >> 4 * drlevel) // 32))
+             if drlevel >= 3 else None)
+    bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32, device=device)
+                 for _ in range(4))
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    oflow = torch.zeros((), dtype=torch.bool, device=device)
+    kw = keep_words(words, valid, n, h, halo, bitmap)
+    survivors = int(unpack_bits(kw, n).sum())
+
+    def keep_k():
+        keep_words(words, valid, n, h, halo, bitmap)
+
+    def keep_p():
+        keep_words_plain(words, valid, n, h, halo, bitmap)
+
+    def comp_k():
+        compact_append(kw, words, table, bufs, count, oflow, 0, h, halo,
+                       cap, buf_cap, g_cap)
+
+    def comp_p():
+        compact_append_plain(kw, words, table, bufs, count, oflow, 0, h,
+                             halo, cap, buf_cap, g_cap)
+
+    def step_new():
+        step(words, exc, sk.tables, bufs, count, oflow, 0, n)
+
+    nb, nw = words.shape
+    L = 16 * (nw - 2)
+    coord = (torch.arange(nb, device=device)[:, None] * (1 << 17)
+             + torch.arange(L, device=device)[None, :] - halo)
+
+    def step_old():
+        # a reconstruction of the earlier eager step: the valid mask, the
+        # window hash and member.cu as it ran them, then the keep bits
+        # packed and this version's plain compaction, whose unpacking
+        # and per-survivor window gathers it did not run (it compacted
+        # the bool mask and gathered codes hashed for every window).
+        # scripts/torch_ab_sketch.py runs the earlier step itself.
+        v = torch.ones(valid.numel(), dtype=torch.bool, device=device)
+        v.index_fill_(0, exc, False)
+        v = v[: nb * L].view(nb, L) & (coord < n)
+        _, _, dim_id, ok = h.windows(words, v)
+        hit = member(dim_id, bitmap, h.dimsize_mask + 1)
+        k = pack_bits((ok & hit)[:, halo:].reshape(-1))
+        compact_append_plain(k, words, table, bufs, count, oflow, 0, h,
+                             halo, cap, buf_cap, g_cap)
+
+    times = {}
+    for name, kern, plain in (("stream_keep", keep_k, keep_p),
+                              ("stream_compact", comp_k, comp_p),
+                              ("step", step_new, step_old)):
+        for _ in range(5):
+            kern()
+            plain()
+        p1 = _events_ms(plain, reps)
+        k1 = _events_ms(kern, reps)
+        k2 = _events_ms(kern, reps)
+        p2 = _events_ms(plain, reps)
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                       "ms_turns": [p1, k1, k2, p2]}
+    # the host's time to issue one step (no other thread running)
+    for key, fn in (("host_ms", step_new), ("plain_host_ms", step_old)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times["step"][key] = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+    G = kw.numel()
+    # stream_keep: words, valid mask and bitmap in, keep words out
+    times["stream_keep"]["bound_ms"], times["stream_keep"]["bound_by"] = \
+        _bound(words.numel() * 4 + nb * (nw - 2) * 16 + bitmap.numel() * 4
+               + G * 4, KEEP_OPS_PER_WINDOW * n)
+    # stream_compact: keep words in; a survivor's three words and table
+    # entry in, four slots out (this batch's survivors, up to cap)
+    wrote = min(survivors, cap)
+    times["stream_compact"]["bound_ms"], \
+        times["stream_compact"]["bound_by"] = _bound(
+            G * 4 + wrote * (12 + 4 + 16) + 10,
+            COMPACT_OPS_PER_WORD * G + COMPACT_OPS_PER_SURVIVOR * wrote)
+    out.update({"timed_survivors": survivors, "g_cap": g_cap,
+                "times": times})
+    return out
 
 
 def run_cli(argv: list[str]) -> tuple[float, str]:
@@ -267,6 +529,37 @@ def _env(**kw: str):
                 os.environ[k] = v
 
 
+def _reset_launches() -> None:
+    from rabbitkssd_tpu_torch.ops.member import member
+    from rabbitkssd_tpu_torch.ops.stream import compact_append, keep_words
+
+    member.launches = keep_words.launches = compact_append.launches = 0
+
+
+def _launches() -> dict:
+    """Each kernel wrapper's launches since :func:`_reset_launches`."""
+    from rabbitkssd_tpu_torch.ops.member import member
+    from rabbitkssd_tpu_torch.ops.stream import compact_append, keep_words
+
+    return {"member_bitmap": member.launches,
+            "stream_keep": keep_words.launches,
+            "stream_compact": compact_append.launches}
+
+
+def _launches_cover(budgets: list[dict], launches: dict, on_card: bool,
+                    what: str) -> None:
+    """On the card each stream kernel launches once a batch and once a
+    re-run, and member.cu (off the path) never; a CPU rehearsal runs the
+    plain versions instead."""
+    runs = sum(b["batches"] + b["reruns"] for b in budgets)
+    want = runs if on_card else 0
+    _require(launches["stream_keep"] == want
+             and launches["stream_compact"] == want
+             and launches["member_bitmap"] == 0
+             and min(b["batches"] for b in budgets) > 0,
+             f"{what}: launches {launches} for {runs} batches + re-runs")
+
+
 def main_path(device, work: str, n_genomes: int, genome_len: int
               ) -> tuple[dict, dict]:
     """Phase 4 + 5a/5b: corpus -> CLI sketch -> CLI alldist, then the
@@ -275,7 +568,6 @@ def main_path(device, work: str, n_genomes: int, genome_len: int
     from rabbitkssd_tpu_torch.host import (KssdParams, generate_shuffle,
                                            oracle_hashes_numpy,
                                            read_records, write_shuffle_file)
-    from rabbitkssd_tpu_torch.ops.member import member
 
     t0 = time.perf_counter()
     list_path, files, total = make_corpus(os.path.join(work, "corpus"),
@@ -288,19 +580,14 @@ def main_path(device, work: str, n_genomes: int, genome_len: int
     sketch_path = os.path.join(work, "bact.sketch")
     dist_path = os.path.join(work, "bact.alldist")
 
-    member.launches = 0
+    _reset_launches()
     sketch_s, err = run_cli(dev + ["sketch", "-i", list_path, "-o",
                                    sketch_path, "-L", shuf_path])
     alldist_s, _ = run_cli(dev + ["alldist", "-i", sketch_path, "-o",
                                   dist_path, "-D", MAX_DIST])
-    launches = member.launches
+    launches = _launches()
     (budget,) = _budgets(err)
-    # on the card every batch launches the kernel once (an overflow
-    # re-run once more); a CPU rehearsal runs the plain version instead
-    _require(launches == (budget["batches"] + budget["reruns"]
-                          if device.type == "cuda" else 0),
-             f"launches {launches} != batches {budget['batches']} + "
-             f"reruns {budget['reruns']}")
+    _launches_cover([budget], launches, device.type == "cuda", "main path")
     _require(budget["batches"] >= -(-total // (16 << 17)),
              f"{budget['batches']} batches cannot cover {total} bases")
     params = KssdParams(10, 6, 3)
@@ -340,14 +627,13 @@ def forced_overflow(device, ctx: dict) -> dict:
     from rabbitkssd_tpu_torch.engine.sketcher import (DeviceSketcher,
                                                       StreamStep)
     from rabbitkssd_tpu_torch.host import KssdParams
-    from rabbitkssd_tpu_torch.ops.member import member
 
     params = KssdParams(10, 6, 3)
     sk = DeviceSketcher(params, ctx["shuf"].shuffled_dim, device)
     sk.cap = 64
     sk.step = StreamStep(params, sk.cap, sk.buf_cap)
     files = ctx["files"][-3:]
-    member.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(io.StringIO()):
         out = sk.sketch_files(files)
@@ -356,14 +642,13 @@ def forced_overflow(device, ctx: dict) -> dict:
     _require(b["batches"] > 0 and b["reruns"] == b["batches"],
              f"forced overflow: {b['reruns']} re-runs of {b['batches']} "
              "batches")
-    _require(member.launches == (2 * b["batches"]
-                                 if device.type == "cuda" else 0),
-             f"forced overflow: {member.launches} launches for "
-             f"{b['batches']} batches + {b['reruns']} re-runs")
+    launches = _launches()
+    _launches_cover([b], launches, device.type == "cuda", "forced overflow")
     for s in out.sketches:
         _require(np.array_equal(s.hashes, ctx["sets"][s.name]),
                  f"forced-overflow sketch of {s.name} != main path")
-    return {"genomes": len(files), "wall_s": wall, "budget": b}
+    return {"genomes": len(files), "wall_s": wall, "launches": launches,
+            "budget": b}
 
 
 def walk_rate(ctx: dict, copies: int = 1, reps: int = 20) -> dict:
@@ -412,8 +697,10 @@ def profile_sketch(device, ctx: dict, work: str, unprofiled: dict) -> dict:
     (b,) = _budgets(err)
     (trace,) = glob.glob(os.path.join(trace_dir, f"{stem}.*.json"))
     rep = summarize(trace, top=1 << 20)
-    keep_ms = sum(t["ms"] for t in rep["top"]
-                  if "member_bitmap_kernel" in t["name"])
+    kernel_ms = {k: sum(t["ms"] for t in rep["top"]
+                        if f"{k}_kernel" in t["name"])
+                 for k in ("stream_keep", "stream_compact",
+                           "member_bitmap")}
     dev_ms = sum(t["ms"] for t in rep["top"])
     return {"trace": os.path.basename(trace), "cli_wall_s": wall,
             "pipeline_wall_s": b["wall"],
@@ -423,8 +710,14 @@ def profile_sketch(device, ctx: dict, work: str, unprofiled: dict) -> dict:
             "device_events": rep["device_events"], "batches": b["batches"],
             "device_busy_ms_per_batch": rep["device_busy_ms"] / b["batches"],
             "device_events_per_batch": rep["device_events"] / b["batches"],
-            "keep_kernel_ms": keep_ms,
-            "keep_share_of_device_ms": keep_ms / dev_ms if dev_ms else 0.0,
+            "dispatch_s": b["dispatch"],
+            "dispatch_ms_per_batch": 1e3 * b["dispatch"] / b["batches"],
+            "unprofiled_dispatch_ms_per_batch":
+                1e3 * unprofiled["dispatch"] / unprofiled["batches"],
+            "kernel_ms": kernel_ms,
+            "kernel_share_of_device_ms": {
+                k: v / dev_ms if dev_ms else 0.0
+                for k, v in kernel_ms.items()},
             "top": [{"ms": t["ms"], "count": t["count"], "cat": t["cat"],
                      "name": t["name"][:90]} for t in rep["top"][:15]]}
 
@@ -479,8 +772,6 @@ def _rows_by_query(path: str) -> dict:
 
 def config2(device, work: str, ctx: dict) -> dict:
     """Phase 8 (a)-(d): BASELINE config 2 through the CLI ``dist``."""
-    from rabbitkssd_tpu_torch.ops.member import member
-
     root = os.path.join(work, "config2")
     os.makedirs(root)
     files = ctx["files"]
@@ -495,19 +786,14 @@ def config2(device, work: str, ctx: dict) -> dict:
 
     # (a) both sides sketched from FASTA on the card
     out_a = os.path.join(root, "c2.dist")
-    member.launches = 0
+    _reset_launches()
     walls["a_dist_from_fasta_s"], err = run_cli(
         dev + ["dist", "-r", lists["ref"], "-q", lists["query"], "-L",
                ctx["shuf_path"], "-D", MAX_DIST, "-o", out_a])
-    launches = member.launches
+    launches = _launches()
     budgets = _budgets(err)
     _require(len(budgets) == 2, f"{len(budgets)} sketch budgets, not 2")
-    # on the card both sketches launch the kernel on every batch and
-    # re-run; a CPU rehearsal runs the plain version instead
-    want = (sum(b["batches"] + b["reruns"] for b in budgets)
-            if device.type == "cuda" else 0)
-    _require(launches == want and min(b["batches"] for b in budgets) > 0,
-             f"config 2: {launches} launches != {want} batches + re-runs")
+    _launches_cover(budgets, launches, device.type == "cuda", "config 2")
     for path, part in ((ref_sk, files[:N_REF]), (q_sk, files[N_REF:])):
         got = _sets(path)
         _require(sorted(got) == sorted(part), f"{path}: genome names")
@@ -692,10 +978,9 @@ def torchrun(nproc: int, root: str, mode: str, timeout: float = 600
 
 
 def rank_cli(spec: dict) -> dict:
-    """Phase 9 (a), one rank: the CLI chain, the keep kernel's launches
+    """Phase 9 (a), one rank: the CLI chain, the kernels' launches
     counted from 0 around each command.  Ranks that share a device start
     their gloo group first; the CLI then keeps it."""
-    from rabbitkssd_tpu_torch.ops.member import member
     from rabbitkssd_tpu_torch.parallel.multihost import init_multihost
     from rabbitkssd_tpu_torch.parallel.sharded import make_mesh
 
@@ -703,11 +988,11 @@ def rank_cli(spec: dict) -> dict:
         _require(init_multihost(cuda=False), "no process group")
     steps = []
     for step in spec["chain"]:
-        member.launches = 0
+        _reset_launches()
         with _env(**step["env"]):
             wall, err = run_cli(step["argv"])
         steps.append({"name": step["name"], "wall_s": wall,
-                      "launches": member.launches, "budgets": _budgets(err),
+                      "launches": _launches(), "budgets": _budgets(err),
                       "saved": "save the sketches into" in err})
     mesh = make_mesh()
     return {"mesh": [mesh.dp, mesh.vp], "steps": steps}
@@ -722,7 +1007,6 @@ def rank_mesh(spec: dict, root: str) -> dict:
     from rabbitkssd_tpu_torch import resolve_device
     from rabbitkssd_tpu_torch.engine.sketcher import sketch_file_list
     from rabbitkssd_tpu_torch.host import read_shuffle_file
-    from rabbitkssd_tpu_torch.ops.member import member
     from rabbitkssd_tpu_torch.parallel.multihost import init_multihost, rank
     from rabbitkssd_tpu_torch.parallel.sharded import (Mesh,
                                                        sharded_common_counts)
@@ -740,13 +1024,13 @@ def rank_mesh(spec: dict, root: str) -> dict:
         rq = sharded_common_counts(hashes[:n_ref], hashes[n_ref:], mesh,
                                    device)
     err = io.StringIO()
-    member.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         sk = sketch_file_list(spec["list"], read_shuffle_file(spec["shuf"]),
                               device=device, mesh=mesh)
     sketch_s = time.perf_counter() - t0
-    launches = member.launches
+    launches = _launches()
     np.savez(os.path.join(root, f"mesh.rank{rank()}.npz"), sym=sym, rq=rq,
              **{f"g{i}": s.hashes for i, s in enumerate(sk.sketches)})
     (budget,) = _budgets(err.getvalue())
@@ -768,16 +1052,6 @@ def rank_main(mode: str, root: str) -> None:
               "w") as f:
         json.dump(report, f)
     shutdown()
-
-
-def _launches_cover(budget: dict, launches: int, on_card: bool, what: str
-                    ) -> None:
-    # on the card every batch and re-run launches the kernel once; a CPU
-    # rehearsal runs the plain version instead
-    want = budget["batches"] + budget["reruns"] if on_card else 0
-    _require(launches == want and budget["batches"] > 0,
-             f"{what}: {launches} launches for {budget['batches']} batches "
-             f"+ {budget['reruns']} re-runs")
 
 
 def ranks_cli(device, work: str, ctx: dict) -> dict:
@@ -824,7 +1098,7 @@ def ranks_cli(device, work: str, ctx: dict) -> dict:
                  f"torchrun {name} rows != phase 4")
     for r, rep in enumerate(reps_a):
         (budget,) = rep["steps"][0]["budgets"]
-        _launches_cover(budget, rep["steps"][0]["launches"], on_card,
+        _launches_cover([budget], rep["steps"][0]["launches"], on_card,
                         f"(a) rank {r} sketch")
     return {"ranks": nproc, "device": dev[1], "mesh": reps_a[0]["mesh"],
             "group": "gloo" if shared else "cpu:gloo,cuda:nccl",
@@ -859,7 +1133,7 @@ def ranks_mesh(device, work: str, ctx: dict) -> dict:
         for i, name in enumerate(rep["names"]):
             _require(np.array_equal(z[f"g{i}"], ctx["sets"][name]),
                      f"(b) rank {r} sketch of {name} != phase 4")
-        _launches_cover(rep["budget"], rep["launches"], on_card,
+        _launches_cover([rep["budget"]], rep["launches"], on_card,
                         f"(b) rank {r}")
     return {"ranks": 3, "wall_s": wall_b,
             "per_rank": [{k: rep[k] for k in ("coords", "ring_s", "sketch_s",
@@ -898,14 +1172,15 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         _die("torch.cuda.is_available() is False: this smoke needs a card")
-    if not os.path.isfile(os.path.join(HERE, "rabbitkssd_tpu_torch",
-                                       "csrc", "member.cu")):
-        _die(f"run from a checkout of the repository ({HERE} has no "
-             "rabbitkssd_tpu_torch/csrc/member.cu)")
+    if not all(os.path.isfile(os.path.join(HERE, "rabbitkssd_tpu_torch",
+                                           "csrc", src))
+               for src in SOURCES.values()):
+        _die(f"run from a checkout of the repository ({HERE} lacks "
+             "rabbitkssd_tpu_torch/csrc/*.cu)")
     sys.path.insert(0, HERE)
     import rabbitkssd_tpu_torch
     from rabbitkssd_tpu_torch.host import load_native
-    from rabbitkssd_tpu_torch.ops._build import load_cuda_lib
+    from rabbitkssd_tpu_torch.ops._build import load_cuda_libs
 
     if not os.path.abspath(rabbitkssd_tpu_torch.__file__).startswith(HERE):
         _die(f"imported the port from {rabbitkssd_tpu_torch.__file__}, "
@@ -922,14 +1197,20 @@ def main() -> None:
     print(f"[1 card] native host library loaded: {load_native() is not None}")
 
     t0 = time.perf_counter()
-    load_cuda_lib("member.cu")
-    print(f"[2 build] csrc/member.cu -> sm_90a in "
-          f"{time.perf_counter() - t0:.3f} s")
+    load_cuda_libs(list(SOURCES.values()))
+    print(f"[2 build] {', '.join(SOURCES.values())} -> sm_90a (three nvcc "
+          f"at once) in {time.perf_counter() - t0:.3f} s")
 
     l3 = kernel_vs_plain(device, 10, 6, 3, seed=1)
-    print(f"[3 kernel] L3 kept set: {json.dumps(l3)}")
+    print(f"[3 kernel] member_bitmap, L3 kept set: {json.dumps(l3)}")
     l2 = kernel_vs_plain(device, 8, 6, 2, seed=2)
-    print(f"[3 kernel] L2 kept set: {json.dumps(l2)}")
+    print(f"[3 kernel] member_bitmap, L2 kept set: {json.dumps(l2)}")
+    s3 = stream_kernels_vs_plain(device, 10, 6, 3, seed=3)
+    print(f"[3 kernel] stream_keep + stream_compact, L3K10: {json.dumps(s3)}")
+    s2 = stream_kernels_vs_plain(device, 8, 6, 2, seed=4)
+    print(f"[3 kernel] stream_keep + stream_compact, L2K8: {json.dumps(s2)}")
+    print("[3 kernel] equal to the plain versions bit for bit: keep words, "
+          "and count, overflow and buffers[:count] in every case")
 
     with tempfile.TemporaryDirectory(prefix="kssd_smoke_") as work:
         mp, ctx = main_path(device, work, N_GENOMES, GENOME_LEN)
@@ -962,26 +1243,40 @@ def main() -> None:
               f"({p9a['group']}, mesh {p9a['mesh']}): sets and rows (auto "
               "and KSSD_HOST_JOIN_MAX=0) equal phase 4, one writer; (b) 3 ranks "
               "on cuda:0 at Mesh(3, 1): ring counts equal the forced "
-              "_int_mm counts, sets equal phase 4; every rank launched the "
-              "kernel on every batch")
+              "_int_mm counts, sets equal phase 4; every rank launched both "
+              "stream kernels on every batch")
 
     rate = int_mm_rate(device)
     print(f"[6 int_mm] {json.dumps(rate)}")
 
+    # times at the main path's shape and kept set (L3K10); member.cu is
+    # off the main path (0 launches there) and keeps its phase-3 check
     kernels = [{
         "name": "member_bitmap",
         "route": "cuda",
-        "source": "rabbitkssd_tpu_torch/csrc/member.cu",
+        "source": f"rabbitkssd_tpu_torch/csrc/{SOURCES['member_bitmap']}",
         "replaces": "rabbitkssd_tpu/ops/pallas_member.py:78",
-        "launches": mp["launches"],
+        "launches": mp["launches"]["member_bitmap"],
         "max_abs_err": max(l3["max_abs_err"], l2["max_abs_err"]),
-        "ms": l3["ms"],
-        "plain_ms": l3["plain_ms"],
+        **{k: l3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
     }]
-    _require(mp["launches"] > 0, "kernel never launched")
+    for kname, replaces in (
+            ("stream_keep", "rabbitkssd_tpu/ops/pallas_member.py:78"),
+            ("stream_compact", "rabbitkssd_tpu/engine/sketcher.py:218")):
+        t = s3["times"][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"rabbitkssd_tpu_torch/csrc/{SOURCES[kname]}",
+            "replaces": replaces, "launches": mp["launches"][kname],
+            "max_abs_err": max(s3["max_abs_err"], s2["max_abs_err"]),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None})
+    _require(all(mp["launches"][k["name"]] > 0 for k in kernels[1:]),
+             "a stream kernel never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

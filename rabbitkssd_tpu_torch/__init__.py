@@ -1,11 +1,14 @@
 """rabbitkssd_tpu_torch: the PyTorch/CUDA port of rabbitkssd_tpu.
 
-The port runs the sketch -> alldist main path on one NVIDIA GPU.  Plain
-device code is PyTorch; the keep test is a hand-written CUDA kernel
-(``csrc/member.cu``).  Host code that the JAX package keeps jax-free
-(params, formats, seqio, shuffle, oracle, native, setops, the CLI
-parser) is imported from ``rabbitkssd_tpu``, never copied; nothing here
-imports jax.
+The port runs every subcommand on one NVIDIA GPU or on several ranks.
+Plain device code is PyTorch; the stream step's window hash + keep test
+and its compaction + append are hand-written CUDA kernels
+(``csrc/stream_keep.cu``, ``csrc/stream_compact.cu``), beside the
+stand-alone bitmap keep test (``csrc/member.cu``).  The port imports
+nothing of ``rabbitkssd_tpu`` and no jax: the jax-free host modules it
+needs (params, formats, seqio, shuffle, glibc_rand, oracle, native,
+engine.setops, utils.stdheap, the CLI parser and host-only commands)
+are copies under the same module names.
 """
 
 __version__ = "0.1.0"

@@ -19,11 +19,17 @@
 // about 10x the DRAM figure, so the random L2 sector reads (and launch
 // overhead at this size) set its time.  Not tuned.
 //
+// The sketch stream step no longer calls this kernel: stream_keep.cu
+// fuses the same lookup (member.cuh) into the window hash.  It stays as
+// the stand-alone keep test of ops/member.py.
+//
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise and allocates nothing.  Returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "member.cuh"
 
 namespace {
 
@@ -35,13 +41,7 @@ __global__ void member_bitmap_kernel(const int32_t* __restrict__ dims,
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const int32_t d = dims[i];
-    uint8_t hit = 0;
-    if (d >= 0 && d < dim_size) {
-      const uint32_t w = __ldg(bitmap + (d >> 5));
-      hit = (uint8_t)((w >> (d & 31)) & 1u);
-    }
-    out[i] = hit;
+    out[i] = (uint8_t)kssd_bitmap_hit(bitmap, dims[i], dim_size);
   }
 }
 

@@ -18,7 +18,7 @@ the reference's exact double semantics:
 * the alldist threshold is strict ``< maxDist`` (dist.cpp:232); dist is
   ``<= maxDist`` (dist.cpp:624) — an intentional reference quirk
 * top-N nearest neighbors replicate std::priority_queue pop order
-  exactly (``rabbitkssd_tpu.utils.stdheap``)
+  exactly (``utils/stdheap.py``)
 * outputs > 4 GiB are left as an ``<out>.dir/`` directory of part files
   plus an ``<out>.index`` genome->file map (dist.cpp:276-341)
 
@@ -38,17 +38,15 @@ import sys
 import numpy as np
 import torch
 
-from rabbitkssd_tpu.formats import SketchSet
-from rabbitkssd_tpu.native import NameBlob, format_rows, load_native
-from rabbitkssd_tpu.utils.stdheap import StdPriorityQueue
-from rabbitkssd_tpu.utils.timers import progress_bar_size
-
+from ..formats import SketchSet
+from ..native import NameBlob, format_rows, load_native
 from ..ops.distance import (_memberships, _pair_counts_host, common_counts,
                             pair_counts)
 from ..ops.intersect import common_counts_sorted
 from ..parallel.multihost import world
 from ..parallel.sharded import make_mesh, sharded_common_counts
-from ..utils.timers import phase
+from ..utils.stdheap import StdPriorityQueue
+from ..utils.timers import phase, progress_bar_size
 
 MAX_SINGLE_FILE = 1 << 32  # 4 GiB split threshold (dist.cpp:277,711)
 # cells (count entries) per vectorized emission group: bounds the
@@ -196,7 +194,7 @@ def _alldist_block_rows(names, sizes, common_blk: np.ndarray, i0: int,
             # leaves stale).  Native: one multithreaded two-pass scan
             # emitting (row, j, count) triples i-major / j-ascending;
             # numpy nonzero + triangle filter is the fallback.
-            from rabbitkssd_tpu.native import scan_nonzero
+            from ..native import scan_nonzero
 
             got = (scan_nonzero(cblk, i0 + g0)
                    if cblk.dtype == np.int32
@@ -548,7 +546,7 @@ def _sort_postings(allh: np.ndarray, gids: np.ndarray):
     np.argsort otherwise.  Returns (sorted_hashes, permuted_gids)."""
     if allh.size == 0:
         return allh, gids
-    from rabbitkssd_tpu.native import radix_sort_kv64, radix_sort_u64
+    from ..native import radix_sort_kv64, radix_sort_u64
 
     hmax = int(allh.max())
     bits = max(1, hmax.bit_length())
@@ -619,7 +617,7 @@ class _CsrIndex:
         allh = (np.concatenate(hashes) if len(hashes)
                 else np.empty(0, np.uint64))
         if allh.size:
-            from rabbitkssd_tpu.native import build_postings
+            from ..native import build_postings
 
             bits = max(1, int(allh.max()).bit_length())
             got = build_postings(allh, sizes, bits)
@@ -661,7 +659,7 @@ class _CsrIndex:
         cols sorted within each strip (the global order is
         column-major).  Returns (g, c, bounds): strip k's pairs are
         ``g[bounds[k]:bounds[k+1]]`` (GLOBAL genome ids), same for c."""
-        from rabbitkssd_tpu.native import partition_pairs
+        from ..native import partition_pairs
 
         n_strips = -(-n_genomes // block)
         got = partition_pairs(self.gids, self.cols, block, n_strips)
@@ -713,7 +711,7 @@ class _CsrIndex:
         ~4 TB across the run while the join is ~2G pairs (BASELINE.md
         scaling table).  Returns None when the native toolchain
         is unavailable (callers fall back to the dense walk)."""
-        from rabbitkssd_tpu.native import pair_collect, radix_sort_u64
+        from ..native import pair_collect, radix_sort_u64
 
         g0, (u0, s0, k0, s1, k1, total) = layout_pack
         keys = pair_collect(g0, s0, k0, self.gids, s1, k1, n1, diag)
@@ -795,7 +793,7 @@ def _load_csr(sketch_path: str | None, use64: bool,
             return None
         if index_bytes > max(1 << 26, 32 * payload_nnz):
             return None
-    from rabbitkssd_tpu.formats import read_index_csr
+    from ..formats import read_index_csr
 
     got = read_index_csr(sketch_path, use64)
     if got is None:

@@ -13,11 +13,13 @@ In a multi-rank run :class:`DeviceSketcher` splits each batch across
 the ranks of a torch.distributed mesh (one process per device) and
 all-gathers their survivors at each flush.
 
-Device differences from the JAX step: the keep test is always the
-bitmap kernel (ops/member.py), so the sorted-space branch is gone;
-torch has no dropping scatter, so both rank scatters write rejects to a
-trash slot one past the end; carry buffers are updated in place with
-device-computed indices, so no step syncs with the host.
+Device differences from the JAX step: on a card the step is two
+hand-written kernels (ops/stream.py: the window hash fused with the
+bitmap keep test, then compaction + compose + append), so the
+keep-strategy branches and the sorted-space compaction are gone; the
+plain versions (CPU tensors) use trash-slot rank scatters, as torch has
+no dropping scatter; carry buffers are updated in place at
+device-computed offsets, so no step syncs with the host.
 """
 
 from __future__ import annotations
@@ -36,17 +38,17 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from rabbitkssd_tpu.formats import Sketch, SketchInfo, SketchSet
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.seqio import read_records
-from rabbitkssd_tpu.utils.timers import progress_bar_size
-
 from ..device import resolve_device
+from ..formats import Sketch, SketchInfo, SketchSet
 from ..ops.kmer import StreamHasher, encode_concat, pack_words_np, \
     pad_exceptions
-from ..ops.member import keep_tables, member
+from ..ops.member import keep_tables
+from ..ops.stream import compact_append, keep_words
 from ..parallel.multihost import local_world, rank
 from ..parallel.sharded import Mesh, allgather_columns, any_rank, make_mesh
+from ..params import KssdParams
+from ..seqio import read_records
+from ..utils.timers import progress_bar_size
 
 # batches per carry-buffer drain: bounds the pending batches' device
 # words kept for the overflow re-run, and lets flush + finalize overlap
@@ -60,11 +62,6 @@ def aligned_halo(params: KssdParams) -> int:
     return -(-(params.kmer_size - 1) // 16) * 16
 
 
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> the int32 with the same bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
 # --------------------------------------------------------------------------
 # device program: hash + keep + compact + append
 # --------------------------------------------------------------------------
@@ -76,15 +73,19 @@ class StreamStep:
     valid_upto) -> (count, overflow)``:
 
     * words int32[nb, nw]: the feeder's u32 word rows viewed as int32;
-    * exc int32[cap_exc]: invalid positions in halo'd-row flat coords,
-      padded with nb*L (the trash slot);
+    * exc int32 or int64[cap_exc]: invalid positions in halo'd-row flat
+      coords, padded with nb*L (the trash slot);
     * tables: (table int32[dim_size], bitmap) from ``keep_tables``;
     * bufs: (lo, hi, pos, batch) int32[buf_cap] carry buffers, written
-      in place at [count, count + cap);
+      in place from min(count, buf_cap - cap) on;
     * count: int32 device scalar write offset; overflow: bool device
       scalar, sticky (batch survivors > cap, 32-window groups > g_cap,
       or buffer full) — read once per flush, triggering an exact re-run;
     * valid_upto: payload coordinates >= it are invalid (tape tail).
+
+    Four device operations a batch: the valid mask (two torch ops),
+    :func:`keep_words` (window hash + keep test, one kernel) and
+    :func:`compact_append` (compaction + compose + append, one kernel).
     """
 
     def __init__(self, params: KssdParams, cap: int, buf_cap: int,
@@ -98,86 +99,25 @@ class StreamStep:
 
     def __call__(self, words, exc, tables, bufs, count, overflow,
                  batch_idx: int, valid_upto: int):
-        p, cap, buf_cap, halo = self.params, self.cap, self.buf_cap, self.halo
+        p, halo = self.params, self.halo
         table, bitmap = tables
-        dev = words.device
         nb, nw = words.shape
         L = 16 * (nw - 2)
-        block = L - halo
+        n = nb * (L - halo)
         # pads hit the trash slot nb * L; index_fill_ takes the value as a
         # kernel argument (an indexed assignment would copy it from host)
-        valid = torch.ones(nb * L + 1, dtype=torch.bool, device=dev)
+        valid = torch.ones(nb * L + 1, dtype=torch.bool, device=words.device)
         valid.index_fill_(0, exc.long(), False)
-        valid = valid[: nb * L].view(nb, L)
-        coord = (torch.arange(nb, device=dev)[:, None] * block
-                 + torch.arange(L, device=dev)[None, :] - halo)
-        valid &= coord < valid_upto
-
-        uni_lo, uni_hi, dim_id, ok = self.hasher.windows(words, valid)
-        hit = member(dim_id, bitmap, p.dim_size)
-        keep = (ok & hit)[:, halo:].reshape(-1)
-        uni_lo = uni_lo[:, halo:].reshape(-1)
-        uni_hi = uni_hi[:, halo:].reshape(-1)
-        dim_id = dim_id[:, halo:].reshape(-1)
-        n = keep.numel()
-
-        # survivors are a ~16^-drlevel fraction: at high reduction, first
-        # select the 32-window groups holding any survivor, then compact
-        # only those
-        o_flag = torch.zeros((), dtype=torch.bool, device=dev)
-        pos_space = None
-        keep_c = keep
+        keep = keep_words(words, valid, valid_upto, self.hasher, halo, bitmap)
+        # survivors are a ~16^-drlevel fraction: at high reduction only
+        # the 32-window groups holding any survivor are compacted
+        g_cap = None
         if self.compaction == "auto" and p.drlevel >= 3 and n % 32 == 0:
-            G = n // 32
-            g_cap = min(G, max(4096, 4 * (n >> (4 * p.drlevel)) // 32))
-            gflag = keep.view(G, 32).any(dim=1)
-            gcsum = torch.cumsum(gflag, dim=0, dtype=torch.int32)
-            n_sel = gcsum[-1]
-            # flagged group g -> slot rank(g) - 1; unflagged groups and
-            # ranks >= g_cap -> trash slot g_cap.  Slots beyond n_sel stay
-            # 0 (alias group 0) and are masked by grp_ok.
-            gidx = torch.where(gflag & (gcsum <= g_cap), gcsum - 1, g_cap)
-            sel = torch.zeros(g_cap + 1, dtype=torch.int32, device=dev)
-            sel.scatter_(0, gidx.long(),
-                         torch.arange(G, dtype=torch.int32, device=dev))
-            sel = sel[:g_cap]
-            pos_space = (sel[:, None] * 32
-                         + torch.arange(32, dtype=torch.int32,
-                                        device=dev)[None, :]).reshape(-1)
-            grp_ok = (torch.arange(g_cap, device=dev) < n_sel)[:, None] \
-                .expand(g_cap, 32).reshape(-1)
-            keep_c = keep[pos_space.long()] & grp_ok
-            o_flag = n_sel > g_cap
-
-        # exact compaction by rank scatter: survivor i lands at slot
-        # rank(i) - 1 (ascending window order); non-survivors and ranks
-        # >= cap go to the trash slot cap.  Slots beyond total stay 0 and
-        # are never read (count advances by min(total, cap)).
-        csum = torch.cumsum(keep_c, dim=0, dtype=torch.int32)
-        total = csum[-1]
-        m = keep_c.numel()
-        ranks = torch.where(keep_c & (csum <= cap), csum - 1, cap)
-        pos_c = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
-        pos_c.scatter_(0, ranks.long(),
-                       torch.arange(m, dtype=torch.int32, device=dev))
-        pos_c = pos_c[:cap]
-        if pos_space is not None:
-            pos_c = pos_space[pos_c.long()]
-        pl = pos_c.long()
-        pf = table[dim_id[pl].long()]
-        out_lo, out_hi = self.hasher.compose(uni_lo[pl], uni_hi[pl], pf)
-
-        buf_lo, buf_hi, buf_pos, buf_batch = bufs
-        start = torch.clamp(count, max=buf_cap - cap)
-        idx = start.long() + torch.arange(cap, device=dev)
-        buf_lo.index_copy_(0, idx, _to_i32(out_lo))
-        buf_hi.index_copy_(0, idx, _to_i32(out_hi))
-        buf_pos.index_copy_(0, idx, pos_c)
-        buf_batch.index_fill_(0, idx, batch_idx)
-        new_count = start + torch.clamp(total, max=cap)
-        overflow = (overflow | o_flag | (total > cap)
-                    | (count > buf_cap - cap))
-        return new_count, overflow
+            g_cap = min(n // 32,
+                        max(4096, 4 * (n >> (4 * p.drlevel)) // 32))
+        return compact_append(keep, words, table, bufs, count, overflow,
+                              batch_idx, self.hasher, halo, self.cap,
+                              self.buf_cap, g_cap)
 
 
 # --------------------------------------------------------------------------
@@ -565,7 +505,9 @@ class DeviceSketcher:
         copies are pinned so the copies are asynchronous; the caching
         host allocator keeps a pinned block alive until its copy ends."""
         w = torch.from_numpy(b.words.view(np.int32))
-        e = torch.from_numpy(pad_exceptions(b.exc, flat_size))
+        # int64, the index type of the step's index_fill_
+        e = torch.from_numpy(
+            pad_exceptions(b.exc, flat_size).astype(np.int64))
         if self.device.type == "cuda":
             return (w.pin_memory().to(self.device, non_blocking=True),
                     e.pin_memory().to(self.device, non_blocking=True))
@@ -764,8 +706,7 @@ class DeviceSketcher:
         which also fixes the i/j orientation of distance rows."""
         from concurrent.futures import ThreadPoolExecutor
 
-        from rabbitkssd_tpu.native import (fasta_packed, fasta_packed_chunks,
-                                           load_native)
+        from ..native import fasta_packed, fasta_packed_chunks, load_native
 
         sizes = [os.stat(f).st_size for f in files]
         order = sorted(range(len(files)), key=lambda i: -sizes[i])
@@ -920,7 +861,7 @@ def sketch_file_list(list_path: str, shuf, device, least_qual: int = 0,
     fastq path, as in the reference.  ``kw`` goes to DeviceSketcher
     (n_blocks, block, buf_cap, mesh).
     """
-    from rabbitkssd_tpu.seqio import classify_list, read_list
+    from ..seqio import classify_list, read_list
 
     if classify_list(list_path) == "fasta":
         least_qual, least_num_kmer = 0, 1

@@ -1,19 +1,18 @@
-"""Host-side helpers the port shares with the JAX package, in one place.
+"""Host-side helpers that scripts driving the port need, in one place.
 
-These modules of ``rabbitkssd_tpu`` load without jax (the port's own
-modules import them too): shuffle files, sketch files, the FASTA/FASTQ
-reader, the native host library and the numpy oracle.  Scripts that
-drive the port, such as ``chip_smoke.py``, import them from here so that
-they name no module of the JAX package.
+Shuffle files, sketch files, the FASTA/FASTQ reader, the native host
+library and the numpy oracle: the port's own copies of the JAX
+package's jax-free modules (the port imports nothing of
+``rabbitkssd_tpu``).  Scripts such as ``chip_smoke.py`` import them
+from here.
 """
 
-from rabbitkssd_tpu.formats import read_sketches
-from rabbitkssd_tpu.native import load_native
-from rabbitkssd_tpu.oracle import oracle_hashes_numpy
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.seqio import read_records
-from rabbitkssd_tpu.shuffle import (generate_shuffle, read_shuffle_file,
-                                    write_shuffle_file)
+from .formats import read_sketches
+from .native import load_native
+from .oracle import oracle_hashes_numpy
+from .params import KssdParams
+from .seqio import read_records
+from .shuffle import generate_shuffle, read_shuffle_file, write_shuffle_file
 
 __all__ = ["KssdParams", "generate_shuffle", "load_native",
            "oracle_hashes_numpy", "read_records", "read_shuffle_file",

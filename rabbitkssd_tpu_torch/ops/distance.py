@@ -86,7 +86,7 @@ def _pair_counts_host(g0, c0, g1, c1, n0: int, n1: int,
                                 else _join_layout(c0, c1))
     if total == 0:
         return out
-    from rabbitkssd_tpu.native import pair_count_native
+    from ..native import pair_count_native
 
     if pair_count_native(g0, s0, k0, g1, s1, k1, out, col_lo=col_lo):
         return out

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rabbitkssd_tpu.params import KssdParams
+from ..params import KssdParams
 
 M32 = 0xFFFFFFFF
 
@@ -144,8 +144,10 @@ class StreamHasher:
     """Window hash over packed word rows for fixed params.
 
     :meth:`windows` gives every window's canonical code, its dim_id and
-    its all-valid flag; :meth:`compose` forms a survivor's reduced hash
+    its all-valid flag, :meth:`at` the canonical code and dim_id of
+    given windows only; :meth:`compose` forms a survivor's reduced hash
     from its canonical code and permuted rank (sketch.cpp:524).
+    ``csrc/stream_hash.cuh`` is the same hash in CUDA.
     """
 
     def __init__(self, params: KssdParams):
@@ -179,10 +181,27 @@ class StreamHasher:
         w = F.pad(words.to(torch.int64) & M32, (2, 0))  # 2 zero words left
         s = torch.arange(L, device=words.device) - (K - 1)  # window start
         widx = (s >> 4) + 2  # >= 0: K - 1 <= 31
-        a = w[:, widx]
-        b = w[:, widx + 1]
-        c = w[:, widx + 2]
-        sh = 2 * (s & 15)
+        uni_lo, uni_hi, dim_id = self._canonical(
+            w[:, widx], w[:, widx + 1], w[:, widx + 2], 2 * (s & 15))
+        return uni_lo, uni_hi, dim_id, _windows_all_valid(valid, K)
+
+    def at(self, words: torch.Tensor, p: torch.Tensor, halo: int):
+        """The windows ending at payload positions ``p`` (int64, flat
+        over the rows: row p // block, position p % block + halo, with
+        block = L - halo) -> (uni_lo, uni_hi int64, dim_id int32) of
+        p's shape: :meth:`windows` at O(1) a position."""
+        nw = words.shape[-1]
+        block = 16 * (nw - 2) - halo
+        row = p // block
+        s = p - row * block + halo - (self.K - 1)  # >= 0: halo >= K - 1
+        base = row * nw + (s >> 4)
+        w = words.reshape(-1)
+        a, b, c = ((w[base + i].to(torch.int64) & M32) for i in range(3))
+        return self._canonical(a, b, c, 2 * (s & 15))
+
+    def _canonical(self, a, b, c, sh):
+        """Canonical code and dim_id of the windows whose oldest base is
+        bit ``sh`` of word ``a`` (``b``, ``c`` the next two words)."""
         ish = 32 - sh
         # E = the window's stream bits, oldest base in the low bits (a
         # shift by 32 leaves only bits >= 32, which the mask drops)
@@ -203,13 +222,12 @@ class StreamHasher:
             f_hi = torch.zeros_like(t_hi)
         f_lo, f_hi = self._fwd_mask(f_lo, f_hi)
 
-        ok = _windows_all_valid(valid, K)
         use_fwd = (f_hi < r_hi) | ((f_hi == r_hi) & (f_lo <= r_lo))
         uni_lo = torch.where(use_fwd, f_lo, r_lo)
         uni_hi = torch.where(use_fwd, f_hi, r_hi)
         dim_id = (_extract_field(uni_lo, uni_hi, self.hoc2, self.subk4)
                   & self.dimsize_mask).to(torch.int32)
-        return uni_lo, uni_hi, dim_id, ok
+        return uni_lo, uni_hi, dim_id
 
     def compose(self, uni_lo, uni_hi, pf):
         """Reduced hash (h_lo, h_hi int64 in [0, 2^32)) from the

@@ -6,6 +6,8 @@ is carried as a bitmap of ``dim_size`` bits in int32 words (bit d of
 word d >> 5); :func:`member` looks each dim_id up in it.  On a CUDA
 tensor it launches the hand-written kernel in ``csrc/member.cu``; on a
 CPU tensor it runs :func:`member_plain`, the same lookup as torch ops.
+The sketch stream step does not call it: ``ops/stream.py`` fuses the
+same lookup (``csrc/member.cuh``) into the window hash.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ print ``===...time of <name> is: <s>`` to stderr (the reference's Timer
 spans); ``KSSD_TIMER=0`` disables them.  ``KSSD_PROFILE_DIR=<dir>``
 additionally records a ``torch.profiler`` trace of each span (CPU and,
 where a card is present, CUDA activity) as a Chrome trace in ``<dir>``.
+:func:`progress_bar_size` is that module's, copied.
 """
 
 from __future__ import annotations
@@ -47,3 +48,14 @@ def phase(name: str):
             f"===================time of {name} is: {time.time() - t0:.6g}",
             file=sys.stderr,
         )
+
+
+def progress_bar_size(total: int) -> int:
+    """Adaptive progress step, exactly get_progress_bar_size
+    (reference common.cpp:23-32); copied from the JAX package."""
+    coarse = total // 20
+    step = 10
+    while coarse // step:
+        step *= 10
+    step //= 10
+    return (coarse // step + 1) * step

@@ -16,15 +16,25 @@ PORT_MODULES = [
     "rabbitkssd_tpu_torch.device",
     "rabbitkssd_tpu_torch.host",
     "rabbitkssd_tpu_torch.cli",
+    "rabbitkssd_tpu_torch.params",
+    "rabbitkssd_tpu_torch.formats",
+    "rabbitkssd_tpu_torch.seqio",
+    "rabbitkssd_tpu_torch.shuffle",
+    "rabbitkssd_tpu_torch.glibc_rand",
+    "rabbitkssd_tpu_torch.oracle",
+    "rabbitkssd_tpu_torch.native",
     "rabbitkssd_tpu_torch.ops.kmer",
     "rabbitkssd_tpu_torch.ops.member",
+    "rabbitkssd_tpu_torch.ops.stream",
     "rabbitkssd_tpu_torch.ops._build",
     "rabbitkssd_tpu_torch.ops.distance",
     "rabbitkssd_tpu_torch.ops.intersect",
     "rabbitkssd_tpu_torch.engine.sketcher",
     "rabbitkssd_tpu_torch.engine.dist_engine",
+    "rabbitkssd_tpu_torch.engine.setops",
     "rabbitkssd_tpu_torch.parallel.multihost",
     "rabbitkssd_tpu_torch.parallel.sharded",
+    "rabbitkssd_tpu_torch.utils.stdheap",
     "rabbitkssd_tpu_torch.utils.timers",
     "rabbitkssd_tpu_torch.utils.trace_report",
 ]

@@ -1,9 +1,14 @@
-"""Port stream step (rabbitkssd_tpu_torch.engine.sketcher.StreamStep) vs
-the JAX ``make_stream_step`` on the same inputs.
+"""Port stream step (rabbitkssd_tpu_torch.engine.sketcher.StreamStep:
+the valid mask, then ``keep_words`` and ``compact_append``, here their
+plain versions) vs the JAX ``make_stream_step`` (the jitted
+``_stream_step_body``) on the same inputs.
 
 Equal (tolerance 0) buffer prefixes ``[:count]``, ``count`` and
-``overflow``.  The JAX side runs with its CPU default keep
-representation (the full-table gather).
+``overflow``, from the same random buffer contents.  The JAX side runs
+with its CPU default keep representation (the full-table gather).
+Cases: sparse L3K10 and dense L2K8 compaction, 32-window groups aligned
+to rows and straddling them (``block % 32 == 16``), forced survivor and
+group overflow, a near-full buffer.
 """
 
 import numpy as np
@@ -37,17 +42,18 @@ def _inputs(params, n_blocks, block, seed):
 
 
 def _run_both(params, words, exc, table, cap, buf_cap, valid_upto,
-              compaction="auto", n_steps=2):
+              compaction="auto", n_steps=2, count0=0):
     jstep = make_stream_step(params, words.shape[0], 0, cap, buf_cap,
                              compaction=compaction)
     jtables = (table, keep_rep_np(table, params.dim_end))
-    z = np.zeros(buf_cap, np.uint32)
-    zi = np.zeros(buf_cap, np.int32)
-    jb = (z, z.copy(), zi, zi.copy(), np.int32(0), np.bool_(False))
+    fill = np.random.default_rng(9).integers(
+        -2**31, 2**31, size=(4, buf_cap)).astype(np.int32)
+    jb = (fill[0].view(np.uint32), fill[1].view(np.uint32), fill[2],
+          fill[3], np.int32(count0), np.bool_(False))
     step = StreamStep(params, cap, buf_cap, compaction=compaction)
     tables = keep_tables(table, params.dim_end, "cpu")
-    bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32) for _ in range(4))
-    count = torch.zeros((), dtype=torch.int32)
+    bufs = tuple(torch.from_numpy(f.copy()) for f in fill)
+    count = torch.tensor(count0, dtype=torch.int32)
     overflow = torch.zeros((), dtype=torch.bool)
     tw = torch.from_numpy(words.view(np.int32))
     te = torch.from_numpy(exc)
@@ -90,7 +96,7 @@ def test_step_dense_branch(valid_upto):
 
 @pytest.mark.parametrize("half_k,half_subk,drlevel,compaction,cap",
                          [(8, 4, 1, "auto", 16), (10, 6, 3, "auto", 2),
-                          (10, 6, 3, "dense", 2)])
+                          (10, 6, 3, "dense", 2), (8, 6, 2, "auto", 16)])
 def test_step_forced_overflow(half_k, half_subk, drlevel, compaction, cap):
     """A tiny cap overflows: count stops at the capped writes, the flag
     is set, and the written prefix still equals JAX's."""
@@ -100,3 +106,45 @@ def test_step_forced_overflow(half_k, half_subk, drlevel, compaction, cap):
                          buf_cap=4 * cap, valid_upto=2 << 14,
                          compaction=compaction, n_steps=3)
     assert oflow and n == 3 * cap
+
+
+@pytest.mark.parametrize("cfg,nb,block", [
+    ((10, 6, 3), 2, 4096),  # sparse, groups aligned to rows
+    ((10, 6, 3), 2, 4112),  # sparse, groups straddle rows
+    ((10, 6, 3), 3, 4112),  # n % 32 != 0: dense
+    ((8, 6, 2), 2, 4096),   # drlevel < 3 (L2K8): dense
+    ((8, 6, 2), 3, 4112),
+])
+def test_step_block_layouts(cfg, nb, block):
+    """32-window groups over the flattened payload, with ``block % 32``
+    0 and 16, in sparse and dense mode; a short valid_upto."""
+    params = KssdParams(*cfg)
+    words, exc, table = _inputs(params, nb, block, seed=nb * block)
+    n, oflow = _run_both(params, words, exc, table, cap=1 << 12,
+                         buf_cap=1 << 14, valid_upto=nb * block - 100)
+    assert n > 0 and not oflow
+
+
+def test_step_group_overflow():
+    """More flagged 32-window groups than g_cap (4096; half the dims
+    kept): only the first g_cap count, and the overflow flag is set."""
+    params = KssdParams(10, 6, 3)
+    words, exc, _ = _inputs(params, 2, 1 << 17, seed=6)
+    table = np.random.default_rng(6).integers(
+        0, 2 * params.dim_end, size=params.dim_size).astype(np.int32)
+    n, oflow = _run_both(params, words, exc, table, cap=1 << 17,
+                         buf_cap=1 << 19, valid_upto=2 << 17, n_steps=1)
+    assert oflow and n > 4096
+
+
+@pytest.mark.parametrize("cfg", [(10, 6, 3), (8, 6, 2)])
+def test_step_near_full_buffer(cfg):
+    """The count starts past buf_cap - cap: the batch lands at buf_cap -
+    cap, over earlier slots, and the overflow flag is set."""
+    params = KssdParams(*cfg)
+    words, exc, table = _inputs(params, 2, 4096, seed=8)
+    cap, buf_cap = 1 << 11, 1 << 13
+    n, oflow = _run_both(params, words, exc, table, cap=cap,
+                         buf_cap=buf_cap, valid_upto=2 * 4096, n_steps=1,
+                         count0=buf_cap - cap + 7)
+    assert oflow and buf_cap - cap < n <= buf_cap
