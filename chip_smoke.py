@@ -18,13 +18,20 @@ Phases, each printing its own lines:
    indexing call on a bool kept-dims table as its library time;
    (b) the stream step's kernels at its shape (16 rows x (2^17 + halo)
    windows, and 2^17 - 16 payload windows a row, where 32-window groups
-   straddle rows): ``stream_keep`` against the plain window hash + keep
-   test + bit packing, ``stream_compact`` against the plain compaction
-   in sparse and dense mode, under forced overflow (cap 64) and with a
-   near-full buffer, and on a dense kept table (half the dims kept), so
-   that in sparse mode more groups are flagged than g_cap; and the whole
-   step, the new one against a reconstruction of the earlier eager step
-   (window hash + member.cu, then this version's plain compaction);
+   straddle rows and the keep words are no multiple of
+   ``stream_compact``'s tile; and one row of 2048, less than one tile):
+   ``stream_keep`` against the plain window hash + keep test + bit
+   packing, ``stream_compact`` against the plain compaction in sparse
+   and dense mode, under forced overflow (cap 64) and with a near-full
+   buffer, and on a dense kept table (half the dims kept), so that in
+   sparse mode more groups are flagged than g_cap, and with the group
+   cut placed exactly on a tile boundary; 100 back-to-back
+   ``stream_compact`` launches on one look-back scratch, each against
+   the plain version; each kernel's device time a launch from a
+   torch.profiler trace, beside CUDA-event times of a call (which
+   include the host's issue); and the whole step, the new one against a
+   reconstruction of the earlier eager step (window hash + member.cu,
+   then this version's plain compaction);
 4. main path: a synthetic bacterial corpus (256 genomes x ~2 Mb, seed
    2024) through the CLI's ``sketch`` then ``alldist -D 0.05`` at L3K10
    on the card; prints walls, Mbase/s, the sketcher's budget and the
@@ -225,6 +232,29 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _trace_ms(fn, reps: int) -> dict:
+    """Device time a call of ``fn`` over ``reps`` calls, from a
+    torch.profiler trace (utils/trace_report.py): the device's busy time
+    and each kernel's or copy's summed time, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rabbitkssd_tpu_torch.utils.trace_report import summarize
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="kssd_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        rep = summarize(path, top=1 << 20)
+    return {"busy_ms": rep["device_busy_ms"] / reps,
+            "by_name": {t["name"]: t["ms"] / reps for t in rep["top"]}}
+
+
 def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
                     seed: int, reps: int = 50) -> dict:
     """Kernel vs plain keep test on one kept set; exact equality.  The
@@ -278,17 +308,17 @@ def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
             "ms_turns": [p1, k1, k2, p2]}
 
 
-def _step_batch(params, block: int, seed: int):
-    """One stream-step batch at the main path's shape: 16 word rows of
-    ``block`` payload + halo random bases with ~0.5 % N runs, its
-    exception list and its valid mask (numpy seed)."""
+def _step_batch(params, block: int, seed: int, nb: int = 16):
+    """One stream-step batch, by default at the main path's shape: ``nb``
+    word rows of ``block`` payload + halo random bases with ~0.5 % N
+    runs, its exception list and its valid mask (numpy seed)."""
     import torch
 
     from rabbitkssd_tpu_torch.engine.sketcher import aligned_halo
     from rabbitkssd_tpu_torch.ops.kmer import pack_words_np, pad_exceptions
 
     rng = np.random.default_rng(seed)
-    nb, L = 16, block + aligned_halo(params)
+    L = block + aligned_halo(params)
     codes = rng.integers(0, 4, size=nb * L, dtype=np.int8)
     for st in rng.integers(0, nb * L - 64, size=nb * L // 4000):
         codes[st: st + int(rng.integers(1, 40))] = -1
@@ -312,9 +342,11 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
 
     from rabbitkssd_tpu_torch.engine.sketcher import DeviceSketcher
     from rabbitkssd_tpu_torch.host import KssdParams, generate_shuffle
-    from rabbitkssd_tpu_torch.ops.member import keep_tables, member
+    from rabbitkssd_tpu_torch.ops.member import (bitmap_summary,
+                                                 keep_tables, member)
     from rabbitkssd_tpu_torch.ops.stream import (compact_append,
                                                  compact_append_plain,
+                                                 compact_tile_words,
                                                  keep_words,
                                                  keep_words_plain,
                                                  pack_bits, unpack_bits)
@@ -337,52 +369,106 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
     cases = {"shuffled": ((cap, buf_cap, 777), (64, 1 << 12, 0),
                           (cap, buf_cap, buf_cap - cap + 9)),
              "dense": ((1 << 17, 1 << 19, 5), (cap, buf_cap, 777))}
-    out = {"cap": cap, "buf_cap": buf_cap, "cases": []}
-    for block in (1 << 17, (1 << 17) - 16):
-        words, exc, valid = _step_batch(params, block, seed + block)
+    # stream_compact's tile (keep words); the plain version has none
+    tile = compact_tile_words() if on_card else 1024
+    out = {"cap": cap, "buf_cap": buf_cap, "tile_words": tile, "cases": []}
+
+    def compare(kw, words, tab, c, bc, c0, mode, what):
+        """compact_append against its plain version from zeroed buffers;
+        returns (count, overflow)."""
+        res = []
+        for fn in (compact_append, compact_append_plain):
+            bufs = tuple(torch.zeros(bc, dtype=torch.int32, device=device)
+                         for _ in range(4))
+            cnt, ofl = fn(kw, words, tab, bufs,
+                          torch.tensor(c0, dtype=torch.int32, device=device),
+                          torch.zeros((), dtype=torch.bool, device=device),
+                          3, h, halo, c, bc, mode)
+            k = int(cnt)
+            res.append((k, bool(ofl), [b[:k].cpu() for b in bufs]))
+        (kc, ko, kb), (pc, po, pb) = res
+        _require((kc, ko) == (pc, po) and all(
+            torch.equal(x, y) for x, y in zip(kb, pb)),
+            f"stream_compact != plain ({what}, g_cap {mode}, cap {c}, "
+            f"count {c0}): {(kc, ko)} vs {(pc, po)}")
+        return kc, ko
+
+    # the main path's shape; 2^17 - 16 payload windows a row, where
+    # 32-window groups straddle rows and G is no multiple of the tile;
+    # one row of 2048, a grid below one tile
+    variants = {}
+    for nb, block in ((16, 1 << 17), (16, (1 << 17) - 16), (1, 2048)):
+        words, exc, valid = _step_batch(params, block, seed + block, nb)
         words, exc, valid = (t.to(device) for t in (words, exc, valid))
-        n = words.shape[0] * block
-        upto = n - 12345  # a tape tail
+        n = nb * block
+        upto = n - 12345 if nb > 1 else n - 123  # a tape tail
         g_cap = (min(n // 32, max(4096, 4 * (n >> 4 * drlevel) // 32))
                  if drlevel >= 3 and n % 32 == 0 else None)
-        modes = [g_cap] + ([None] if g_cap is not None else [])
         for kept, (tab, bm) in (("shuffled", (table, bitmap)),
                                 ("dense", dense)):
             kw = keep_words(words, valid, upto, h, halo, bm)
             kw_plain = keep_words_plain(words, valid, upto, h, halo, bm)
             _require(torch.equal(kw, kw_plain), f"stream_keep != plain "
-                     f"(block {block}, {kept} kept set)")
+                     f"({nb} x {block}, {kept} kept set)")
             survivors = int(unpack_bits(kw, n).sum())
-            n_sel = int((kw != 0).sum())
-            _require(kept == "shuffled" or g_cap is None or n_sel > g_cap,
+            flags = (kw != 0).cpu()
+            n_sel = int(flags.sum())
+            _require(kept == "shuffled" or g_cap is None or nb == 1
+                     or n_sel > g_cap,
                      f"dense kept set flags {n_sel} groups, g_cap {g_cap}")
+            modes = [g_cap] + ([None] if g_cap is not None else [])
+            if kept == "dense" and g_cap is not None:
+                # the group cut exactly on a tile boundary (all flagged
+                # groups of the first three tiles, or of the only one)
+                modes.append(int(flags[:3 * tile].sum()))
             for mode in modes:
                 for c, bc, c0 in cases[kept]:
-                    res = []
-                    for fn in (compact_append, compact_append_plain):
-                        bufs = tuple(torch.zeros(bc, dtype=torch.int32,
-                                                 device=device)
-                                     for _ in range(4))
-                        cnt, ofl = fn(kw, words, tab, bufs,
-                                      torch.tensor(c0, dtype=torch.int32,
-                                                   device=device),
-                                      torch.zeros((), dtype=torch.bool,
-                                                  device=device),
-                                      3, h, halo, c, bc, mode)
-                        k = int(cnt)
-                        res.append((k, bool(ofl),
-                                    [b[:k].cpu() for b in bufs]))
-                    (kc, ko, kb), (pc, po, pb) = res
-                    _require((kc, ko) == (pc, po) and all(
-                        torch.equal(x, y) for x, y in zip(kb, pb)),
-                        f"stream_compact != plain (block {block}, {kept} "
-                        f"kept set, g_cap {mode}, cap {c}, count {c0}): "
-                        f"{(kc, ko)} vs {(pc, po)}")
+                    kc, ko = compare(kw, words, tab, c, bc, c0, mode,
+                                     f"{nb} x {block}, {kept} kept set")
                     out["cases"].append({
-                        "block": block, "kept": kept, "g_cap": mode,
-                        "flagged_groups": n_sel, "survivors": survivors,
-                        "cap": c, "count0": c0, "count": kc,
-                        "overflow": ko})
+                        "rows": nb, "block": block, "kept": kept,
+                        "g_cap": mode, "flagged_groups": n_sel,
+                        "survivors": survivors, "cap": c, "count0": c0,
+                        "count": kc, "overflow": ko})
+            variants[(nb, block, kept)] = (kw, words, tab, g_cap)
+
+    # back-to-back launches on one stream, so on one look-back scratch:
+    # grids of 64, 64 and 1 tiles in turn, sparse and dense; every
+    # launch's count and overflow, and the last one's buffers, against
+    # the plain version
+    cycle = [variants[(16, 1 << 17, "shuffled")],
+             variants[(16, (1 << 17) - 16, "dense")],
+             variants[(1, 2048, "dense")]]
+    want = [compare(kw, words, tab, cap, buf_cap, 777, mode, "reuse")
+            for kw, words, tab, mode in cycle]
+    bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32, device=device)
+                 for _ in range(4))
+    got = []
+    launches = 100 if on_card else 4  # plain on a CPU rehearsal
+    for i in range(launches):
+        kw, words, tab, mode = cycle[i % 3]
+        got.append(compact_append(
+            kw, words, tab, bufs,
+            torch.tensor(777, dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.bool, device=device), 3, h, halo,
+            cap, buf_cap, mode))
+    got = [(int(c), bool(o)) for c, o in got]
+    _require(got == [want[i % 3] for i in range(launches)],
+             "back-to-back stream_compact launches != plain")
+    # the last launch wrote [777, count) over the earlier ones' slots
+    kw, words, tab, mode = cycle[(launches - 1) % 3]
+    plain_bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32,
+                                   device=device) for _ in range(4))
+    compact_append_plain(
+        kw, words, tab, plain_bufs,
+        torch.tensor(777, dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.bool, device=device), 3, h, halo, cap,
+        buf_cap, mode)
+    k = got[-1][0]
+    _require(all(torch.equal(x[:k], y[:k]) for x, y in zip(bufs, plain_bufs)),
+             "the last back-to-back stream_compact launch != plain")
+    out["back_to_back"] = {"launches": launches,
+                           "counts": sorted(set(got))}
     out["max_abs_err"] = 0  # every comparison above is exact equality
     if not on_card:
         return out
@@ -438,6 +524,10 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         compact_append_plain(k, words, table, bufs, count, oflow, 0, h,
                              halo, cap, buf_cap, g_cap)
 
+    # "ms": device time a call from a torch.profiler trace (the kernel's
+    # own entries, or the step's busy time); events time a call, in
+    # turns, includes the host's issue of each call, which the kernels
+    # now run faster than
     times = {}
     for name, kern, plain in (("stream_keep", keep_k, keep_p),
                               ("stream_compact", comp_k, comp_p),
@@ -449,8 +539,14 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         k1 = _events_ms(kern, reps)
         k2 = _events_ms(kern, reps)
         p2 = _events_ms(plain, reps)
-        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                       "ms_turns": [p1, k1, k2, p2]}
+        kt, pt = _trace_ms(kern, reps), _trace_ms(plain, reps)
+        times[name] = {
+            "ms": (kt["busy_ms"] if name == "step" else
+                   sum(v for k, v in kt["by_name"].items()
+                       if f"{name}_kernel" in k)),
+            "events_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "plain_device_ms": pt["busy_ms"],
+            "ms_turns": [p1, k1, k2, p2]}
     # the host's time to issue one step (no other thread running)
     for key, fn in (("host_ms", step_new), ("plain_host_ms", step_old)):
         torch.cuda.synchronize()
@@ -460,9 +556,12 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         times["step"][key] = (time.perf_counter() - t0) / reps * 1e3
         torch.cuda.synchronize()
     G = kw.numel()
-    # stream_keep: words, valid mask and bitmap in, keep words out
+    # stream_keep: words, valid mask, bitmap and its summary in, keep
+    # words out
+    summary, _ = bitmap_summary(bitmap, params.dim_size)
     times["stream_keep"]["bound_ms"], times["stream_keep"]["bound_by"] = \
         _bound(words.numel() * 4 + nb * (nw - 2) * 16 + bitmap.numel() * 4
+               + summary.numel() * 4
                + G * 4, KEEP_OPS_PER_WINDOW * n)
     # stream_compact: keep words in; a survivor's three words and table
     # entry in, four slots out (this batch's survivors, up to cap)

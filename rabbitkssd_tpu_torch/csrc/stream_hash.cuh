@@ -27,14 +27,21 @@ __device__ __forceinline__ uint64_t kssd_rev2_64(uint64_t x) {
   return ((x & m) << 1) | ((x >> 1) & m);
 }
 
+// the 64 stream bits from bit sh (< 32) of word a on, given the next two
+// words: 32 bases, the oldest in the low bits
+__device__ __forceinline__ uint64_t kssd_stream_bits(uint32_t a, uint32_t b,
+                                                     uint32_t c, int sh) {
+  const uint64_t ab = ((uint64_t)b << 32) | a;
+  return sh ? (ab >> sh) | ((uint64_t)c << (64 - sh)) : ab;
+}
+
 // canonical (min of forward and reverse complement) 2K-bit code of the
 // window whose oldest base is bit sh of word a, given the next two words
 __device__ __forceinline__ uint64_t kssd_canonical(uint32_t a, uint32_t b,
                                                    uint32_t c, int sh,
                                                    int TB) {
-  const uint64_t ab = ((uint64_t)b << 32) | a;
   const uint64_t m = kssd_window_mask(TB);
-  const uint64_t e = (sh ? (ab >> sh) | ((uint64_t)c << (64 - sh)) : ab) & m;
+  const uint64_t e = kssd_stream_bits(a, b, c, sh) & m;
   const uint64_t r = ~e & m;
   const uint64_t f = kssd_rev2_64(e) >> (64 - TB);
   return f <= r ? f : r;

@@ -1,45 +1,56 @@
-// The sketch stream step's window hash and keep test, fused: one thread per
-// window, one keep bit per window, 32 windows to a word.
+// The sketch stream step's window hash and keep test, fused: one thread
+// per keep word, 32 windows to a word.
 //
 // Replaces, on the port's stream step, the eager window hash
 // (ops/kmer.py:StreamHasher.windows, the port of the JAX
-// hash_windows_stream), the bitmap keep test member.cu (which replaced the
-// Pallas TPU kernel _member_kernel, rabbitkssd_tpu/ops/pallas_member.py:78),
-// the `ok & hit` and the 32-window group flags
-// (rabbitkssd_tpu/engine/sketcher.py:192-233).  The TPU step kept them
-// apart because it was bound elsewhere; on the H100 the eager version was
-// ~60 int64 torch ops a batch, each a pass over 16 MB, dispatched from the
-// host at 6.4 ms a batch.  Here a batch is one launch that reads the
-// packed words (0.5 MB) and the valid mask (2 MB) once and writes
-// G = nb*block/32 keep words (256 KB): no per-window intermediate reaches
-// device memory.
+// hash_windows_stream, rabbitkssd_tpu/ops/kmer.py:252), the bitmap keep
+// test member.cu (which replaced the Pallas TPU kernel _member_kernel,
+// rabbitkssd_tpu/ops/pallas_member.py:78), the `ok & hit` and the
+// 32-window group flags (rabbitkssd_tpu/engine/sketcher.py:192-233).  A
+// batch is one launch that reads the packed words (0.5 MB) and the valid
+// mask (2 MB) and writes G = ceil(nb*block/32) keep words (256 KB): no
+// per-window intermediate reaches device memory.
 //
-// Work: a block of 256 threads takes 256 consecutive windows of one row.
-// It stages the words they span (cp.async) and the validity of their
-// positions and of the 32 before (one __ballot_sync per 32 positions)
-// in shared memory.  Each thread then computes its window's canonical
-// code in native uint64 (stream_hash.cuh), its dim_id, the K-window
-// all-valid test (a funnel shift of the validity bits, replacing the
-// eager cumsum), the `payload coordinate < valid_upto` test and the
-// bitmap bit (member.cuh), and a warp packs its 32 keep bits with
-// __ballot_sync.  Keep words are over the flattened payload
-// (p = row*block + q): where block % 32 == 0 a warp's 32 windows are one
-// word, stored as is; otherwise a word straddles two warps (or two rows)
-// and each warp ORs its bits in atomically into words zeroed first.
-//
-// Bound: ~26 32-bit operations a window are what the keep test needs
-// (forward and reverse-complement codes rolled along the row; counted in
+// Bound on the H100: operations.  The keep test needs ~26 32-bit
+// operations a window with the codes rolled along the row (counted in
 // chip_smoke.py, KEEP_OPS_PER_WINDOW): 1.6 us a batch of 2.1M windows at
 // 132 SMs x 128 lanes x 1.98 GHz, just above the ~5 MB the batch must
-// move (1.5 us at 3.35 TB/s).  A thread that hashes its window alone
-// cannot roll the codes, so it spends about twice that count on the
-// funnel shift and the 64-bit 2-bit-group reversal.
+// move (1.5 us at 3.35 TB/s).  What held the first versions back was
+// neither: each window probed the 2 MiB kept-set bitmap at a random
+// word, 2.1M random L2 sector reads a batch, ~19 us on their own (as
+// member.cu and the one-call kept_lut[d] show).
+//
+// Design: thread g owns keep word g of the flattened payload (windows
+// p = 32g .. 32g+31, p = row*block + q), so no word is shared and the
+// warp's 32 words are one coalesced store.  The thread hashes its first
+// window in full (a funnel shift and a 2-bit-group reversal,
+// stream_hash.cuh), then rolls the forward code (shift in the next base)
+// and the reverse complement (shift out the oldest, put the next base's
+// complement at bit 2K-2) one base at a time, from one 64-bit register of
+// the next 31 bases: about 26 operations a window instead of ~60.  The
+// K-window validity of all 32 windows is one AND of shifted copies of
+// the validity bits of their 32 + K - 1 positions (log2 K steps), packed
+// from five 16-byte loads of the bool mask.  Each block first copies a
+// summary of the bitmap into shared memory (a bit per one or two bitmap
+// words, set iff one of them is nonzero; 32 KB at half_subk = 6, built
+// by ops/member.py:summary_np); a window reads the bitmap in L2 only
+// where its summary bit is set (~1 % of windows at L3K10's 4096 kept
+// dims, ~20 % at L2K8's 65,536).  Those probes are issued before any of
+// their bits is used, so their latencies overlap.  A word that crosses a
+// row break (block % 32 == 16) is two runs, the second restarted at the
+// next row: no memset and no atomics.  Windows past n = nb*block (the
+// last word's unused bits) and at payload coordinates >= valid_upto are
+// 0.
+//
+// Occupancy (nvcc -Xptxas -v, sm_90a): 64 registers, no spills; blocks
+// of 512 threads with 32 KB of shared memory, so two blocks (32 warps,
+// half the SM's) an SM by registers; 128 blocks, one wave, at the main
+// path's 65,536 keep words.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
-// synchronise and allocates nothing.  Returns the first CUDA error.
+// synchronise and allocates nothing.  Returns cudaGetLastError().
 
 #include <cstdint>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "member.cuh"
@@ -47,104 +58,164 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// words the block's windows span: oldest bases over kThreads positions,
-// plus the two words after the last one's
-constexpr int kWords = kThreads / 16 + 4;
-// validity bits of the 32 positions before the first window end and of
-// the kThreads window ends, plus one zero word the funnel shift may read
-constexpr int kValidWords = kThreads / 32 + 2;
+constexpr int kThreads = 512;
+constexpr int kWin = 32;  // windows a thread: one keep word
+
+__device__ __forceinline__ uint32_t word_at(const uint32_t* __restrict__ wrow,
+                                            int i, int nw) {
+  return i < nw ? __ldg(wrow + i) : 0u;
+}
+
+// four 0/1 bytes as four bits (byte i -> bit i)
+__device__ __forceinline__ uint32_t pack4(uint32_t v) {
+  return (((__vcmpne4(v, 0u) & 0x01010101u) * 0x01020408u) >> 24) & 0xfu;
+}
+
+// validity of row positions s .. s + 63 (bit i = position s + i; positions
+// >= L are 0).  vrow is 16-byte aligned (L % 16 == 0).
+__device__ __forceinline__ uint64_t valid_bits(const uint8_t* __restrict__ vrow,
+                                               int s, int L) {
+  const int c0 = s >> 4;
+  uint64_t lo = 0;
+  uint32_t hi = 0;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    uint32_t bits = 0;
+    if ((c0 + c) * 16 < L) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(vrow) + c0 + c);
+      bits = pack4(x.x) | pack4(x.y) << 4 | pack4(x.z) << 8 |
+             pack4(x.w) << 12;
+    }
+    if (c < 4) lo |= (uint64_t)bits << (16 * c); else hi = bits;
+  }
+  const int sh = s & 15;
+  return sh ? (lo >> sh) | ((uint64_t)hi << (64 - sh)) : lo;
+}
+
+// bit j set where bits j .. j + K - 1 of v are all set (K <= 32)
+__device__ __forceinline__ uint32_t valid_runs(uint64_t v, int K) {
+  int len = 1;
+  while (2 * len <= K) {
+    v &= v >> len;
+    len *= 2;
+  }
+  if (len < K) v &= v >> (K - len);
+  return (uint32_t)v;
+}
+
+// keep bits of the nwin (1..32) windows of one row from payload offset q
+// on (window q ends at row position q + halo), bit j for window q + j;
+// summary: the bitmap's summary in shared memory, a bit for each run of
+// 2^sum_shift bitmap words, set iff any of them is nonzero
+__device__ __forceinline__ uint32_t keep_run(
+    const uint32_t* __restrict__ wrow, int nw,
+    const uint8_t* __restrict__ vrow, int L, int q, int nwin, int halo,
+    int K, int hoc2, const uint32_t* __restrict__ bitmap,
+    int32_t dim_size, const uint32_t* summary, int sum_shift) {
+  const int s = q + halo - (K - 1);  // oldest base of window 0
+  const int TB = 2 * K;
+  const uint64_t m = kssd_window_mask(TB);
+  const int a = s >> 4;
+  const uint64_t e =
+      kssd_stream_bits(word_at(wrow, a, nw), word_at(wrow, a + 1, nw),
+                       word_at(wrow, a + 2, nw), 2 * (s & 15)) & m;
+  uint64_t f = kssd_rev2_64(e) >> (64 - TB);  // newest base low
+  uint64_t r = ~e & m;                        // newest base's complement high
+  // the newest bases of windows 1 .. 31, from position s + K on
+  const int t = s + K;
+  const int b = t >> 4;
+  const uint64_t next =
+      kssd_stream_bits(word_at(wrow, b, nw), word_at(wrow, b + 1, nw),
+                       word_at(wrow, b + 2, nw), 2 * (t & 15));
+  // a base's complement enters r at bit 2K - 2, in its low or high word
+  const int top = TB - 2;
+  const uint32_t ins_sh = top & 31;
+  const uint32_t lo_mask = top < 32 ? ~0u : 0u;
+
+  int32_t dim[kWin];
+#pragma unroll
+  for (int j = 0; j < kWin; ++j) {
+    if (j > 0) {
+      const uint32_t base = (uint32_t)(next >> (2 * (j - 1))) & 3u;
+      f = ((f << 2) | base) & m;
+      const uint32_t ins = (base ^ 3u) << ins_sh;
+      r = (r >> 2) | ((uint64_t)(ins & ~lo_mask) << 32) | (ins & lo_mask);
+    }
+    dim[j] = kssd_dim_id(f <= r ? f : r, hoc2, dim_size);
+  }
+  // every probe in flight before any bit is read; a dim whose summary
+  // bit is 0 has a zero bitmap word, and its (predicated) load is skipped
+  uint32_t word[kWin];
+#pragma unroll
+  for (int j = 0; j < kWin; ++j) {
+    const int i = dim[j] >> (5 + sum_shift);
+    word[j] = (summary[i >> 5] >> (i & 31)) & 1u
+                  ? kssd_bitmap_word(bitmap, dim[j]) : 0u;
+  }
+  uint32_t hit = 0;
+#pragma unroll
+  for (int j = 0; j < kWin; ++j) hit |= kssd_bitmap_bit(word[j], dim[j]) << j;
+  const uint32_t live = nwin >= kWin ? ~0u : (1u << nwin) - 1u;
+  return hit & valid_runs(valid_bits(vrow, s, L), K) & live;
+}
 
 __global__ void __launch_bounds__(kThreads) stream_keep_kernel(
     const uint32_t* __restrict__ words, int nw,
     const uint8_t* __restrict__ valid, int L, int halo, int block,
-    long long valid_upto, int K, int hoc2,
+    long long n, long long valid_upto, int K, int hoc2,
     const uint32_t* __restrict__ bitmap, int32_t dim_size,
-    uint32_t* __restrict__ out, long long G, int aligned) {
-  __shared__ uint32_t sw[kWords];
-  __shared__ uint32_t vb[kValidWords];
-  const int t = threadIdx.x;
-  const int row = blockIdx.y;
-  const int q0 = blockIdx.x * kThreads;  // first payload offset in the row
-  const uint32_t* wrow = words + (size_t)row * nw;
-  const uint8_t* vrow = valid + (size_t)row * L;
-
-  // the word holding the oldest base of the block's first window
-  const int w0 = (q0 + halo - (K - 1)) >> 4;
-  if (t < kWords) {
-    if (w0 + t < nw) {
-      __pipeline_memcpy_async(&sw[t], wrow + w0 + t, sizeof(uint32_t));
-    } else {
-      sw[t] = 0u;
-    }
-  }
-  __pipeline_commit();
-
-  // vb bit i = validity of row position base + i
-  const int base = q0 + halo - 32;
-  for (int i = t; i < kThreads + 32; i += kThreads) {
-    const int pos = base + i;
-    const bool v = pos >= 0 && pos < L && vrow[pos] != 0;
-    const unsigned bits = __ballot_sync(0xffffffffu, v);
-    if ((i & 31) == 0) vb[i >> 5] = bits;
-  }
-  if (t == 0) vb[kValidWords - 1] = 0u;
-  __pipeline_wait_prior(0);
+    const uint32_t* __restrict__ summary, int sum_words, int sum_shift,
+    uint32_t* __restrict__ out, long long G) {
+  extern __shared__ uint32_t s_summary[];
+  for (int i = threadIdx.x; i < sum_words; i += kThreads)
+    s_summary[i] = __ldg(summary + i);
   __syncthreads();
-
-  const int q = q0 + t;
-  bool keep = false;
-  if (q < block) {
-    const int s = q + halo - (K - 1);  // oldest base of the window
-    const int lw = (s >> 4) - w0;
-    const uint64_t uni =
-        kssd_canonical(sw[lw], sw[lw + 1], sw[lw + 2], 2 * (s & 15), 2 * K);
-    // all K positions s .. s + K - 1 valid
-    const int i = s - base;
-    const uint32_t run = __funnelshift_r(vb[i >> 5], vb[(i >> 5) + 1], i & 31);
-    const uint32_t km = K >= 32 ? 0xffffffffu : ((1u << K) - 1u);
-    keep = (run & km) == km && (long long)row * block + q < valid_upto &&
-           kssd_bitmap_hit(bitmap, kssd_dim_id(uni, hoc2, dim_size), dim_size);
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= G) return;
+  const long long p0 = g * kWin;
+  // windows p0 .. end - 1 may be kept: none past n, and payload
+  // coordinates >= valid_upto are invalid
+  const long long end = min(min(p0 + kWin, n), max(valid_upto, p0));
+  int row = (int)(p0 / block);
+  int q = (int)(p0 - (long long)row * block);
+  uint32_t bits = 0;
+  for (int j = 0; p0 + j < end; ++row, q = 0) {  // a second run: next row
+    const int nwin = (int)min(end - p0 - j, (long long)(block - q));
+    bits |= keep_run(words + (size_t)row * nw, nw, valid + (size_t)row * L,
+                     L, q, nwin, halo, K, hoc2, bitmap, dim_size, s_summary,
+                     sum_shift)
+            << j;
+    j += nwin;
   }
-
-  const unsigned bits = __ballot_sync(0xffffffffu, keep);
-  const int qw = q0 + (t & ~31);  // lane 0's payload offset
-  if ((t & 31) == 0 && qw < block) {
-    const long long p0 = (long long)row * block + qw;
-    const long long w = p0 >> 5;
-    if (aligned) {
-      out[w] = bits;
-    } else if (bits) {
-      const int off = (int)(p0 & 31);
-      atomicOr(out + w, bits << off);
-      if (off && w + 1 < G) atomicOr(out + w + 1, bits >> (32 - off));
-    }
-  }
+  out[g] = bits;
 }
 
 }  // namespace
 
 // words: u32[nb, nw] rows; valid: bool[>= nb * L] (row-major, L =
-// 16 * (nw - 2)); out: u32[G], G = ceil(nb * block / 32).
+// 16 * (nw - 2), 16-byte aligned); bitmap: the kept set, u32[dim_size /
+// 32]; summary: u32[sum_words], bit i set iff any of bitmap words [i <<
+// sum_shift, (i + 1) << sum_shift) is nonzero (at most 48 KB); out:
+// u32[G], G = ceil(nb * block / 32).
 extern "C" int kssd_stream_keep(const void* words, int nb, int nw,
                                 const void* valid, int halo,
                                 long long valid_upto, int K, int hoc2,
                                 const void* bitmap, int32_t dim_size,
-                                void* out, long long G, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+                                const void* summary, int sum_words,
+                                int sum_shift, void* out, long long G,
+                                void* stream) {
   const int L = 16 * (nw - 2);
   const int block = L - halo;
   if (nb <= 0 || block <= 0) return (int)cudaGetLastError();
-  const int aligned = block % 32 == 0;
-  if (!aligned) {
-    const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)G * 4, st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((block + kThreads - 1) / kThreads),
-                  (unsigned)nb);
-  stream_keep_kernel<<<grid, kThreads, 0, st>>>(
+  if (sum_words <= 0 || sum_words > (48 << 10) / 4 ||
+      (long long)sum_words * 32 << (5 + sum_shift) < dim_size)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((G + kThreads - 1) / kThreads);
+  stream_keep_kernel<<<grid, kThreads, sum_words * sizeof(uint32_t),
+                       (cudaStream_t)stream>>>(
       (const uint32_t*)words, nw, (const uint8_t*)valid, L, halo, block,
-      valid_upto, K, hoc2, (const uint32_t*)bitmap, dim_size,
-      (uint32_t*)out, G, aligned);
+      (long long)nb * block, valid_upto, K, hoc2, (const uint32_t*)bitmap,
+      dim_size, (const uint32_t*)summary, sum_words, sum_shift,
+      (uint32_t*)out, G);
   return (int)cudaGetLastError();
 }

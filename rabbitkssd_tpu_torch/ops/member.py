@@ -7,12 +7,14 @@ word d >> 5); :func:`member` looks each dim_id up in it.  On a CUDA
 tensor it launches the hand-written kernel in ``csrc/member.cu``; on a
 CPU tensor it runs :func:`member_plain`, the same lookup as torch ops.
 The sketch stream step does not call it: ``ops/stream.py`` fuses the
-same lookup (``csrc/member.cuh``) into the window hash.
+same lookup (``csrc/member.cuh``) into the window hash, in front of
+which it tests the bitmap's :func:`bitmap_summary` in shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -20,6 +22,9 @@ import torch
 from ._build import load_cuda_lib
 
 _BITS = 32
+# the bitmap summary that stream_keep holds in shared memory: at most
+# this many bytes
+SUMMARY_BYTES = 32 << 10
 
 
 def bitmap_np(kept_mask: np.ndarray) -> np.ndarray:
@@ -32,16 +37,63 @@ def bitmap_np(kept_mask: np.ndarray) -> np.ndarray:
     return np.packbits(m, bitorder="little").view("<u4").view(np.int32)
 
 
+def summary_np(bm: np.ndarray, dim_size: int) -> tuple[np.ndarray, int]:
+    """(summary int32 words, shift) of bitmap words ``bm``: bit i of the
+    summary is set iff any of bitmap words [i << shift, (i + 1) << shift)
+    is nonzero, with the smallest shift that fits ``SUMMARY_BYTES``.  A
+    dim whose summary bit is 0 is not kept."""
+    words = -(-dim_size // _BITS)
+    shift = 0
+    while -(-words >> shift) > 8 * SUMMARY_BYTES:
+        shift += 1
+    nz = np.asarray(bm[:words]) != 0
+    nz = np.concatenate([nz, np.zeros(-words % (1 << shift), bool)])
+    return bitmap_np(nz.reshape(-1, 1 << shift).any(axis=1)), shift
+
+
+# summaries by bitmap tensor: id -> (data pointer, version, dim_size,
+# summary tensor, shift); an entry goes with its bitmap
+_SUMMARIES: dict[int, tuple] = {}
+
+
+def _register(bitmap: torch.Tensor, dim_size: int, summary: torch.Tensor,
+              shift: int) -> None:
+    key = id(bitmap)
+    if key not in _SUMMARIES:
+        weakref.finalize(bitmap, _SUMMARIES.pop, key, None)
+    _SUMMARIES[key] = (bitmap.data_ptr(), bitmap._version, dim_size,
+                       summary, shift)
+
+
+def bitmap_summary(bitmap: torch.Tensor, dim_size: int
+                   ) -> tuple[torch.Tensor, int]:
+    """(summary, shift) of a bitmap on its device (:func:`summary_np`):
+    the one :func:`keep_tables` uploaded with it, else made from a host
+    copy at first use and kept while the bitmap lives unchanged."""
+    entry = _SUMMARIES.get(id(bitmap))
+    if entry is None or entry[:3] != (bitmap.data_ptr(), bitmap._version,
+                                      dim_size):
+        summary, shift = summary_np(bitmap.cpu().numpy(), dim_size)
+        _register(bitmap, dim_size,
+                  torch.from_numpy(summary).to(bitmap.device), shift)
+        entry = _SUMMARIES[id(bitmap)]
+    return entry[3], entry[4]
+
+
 def keep_tables(shuffled_dim: np.ndarray, dim_end: int, device
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The keep test's state from a shuffle permutation: (table
     int32[dim_size], bitmap int32[dim_size/32]) on ``device``.  The
     table gives survivors their permuted rank; the bitmap is the kept
-    set."""
+    set.  The bitmap's :func:`bitmap_summary` goes up in the same copy
+    (the bitmap is a view of the first words)."""
     t = np.ascontiguousarray(shuffled_dim, dtype=np.int32)
     bm = bitmap_np((t >= 0) & (t < dim_end))
-    return (torch.from_numpy(t).to(device),
-            torch.from_numpy(bm).to(device))
+    summary, shift = summary_np(bm, t.size)
+    both = torch.from_numpy(np.concatenate([bm, summary])).to(device)
+    bitmap = both[: bm.size]
+    _register(bitmap, t.size, both[bm.size:], shift)
+    return torch.from_numpy(t).to(device), bitmap
 
 
 def bitmap_from_lane_table(lane_tab: np.ndarray, dim_size: int

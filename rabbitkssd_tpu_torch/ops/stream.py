@@ -13,12 +13,13 @@ or raises, and runs its plain PyTorch version (``*_plain``, the JAX
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from ._build import load_cuda_lib
 from .kmer import M32, StreamHasher
-from .member import member_plain
+from .member import bitmap_summary, member_plain
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -81,8 +82,8 @@ def keep_words(words: torch.Tensor, valid: torch.Tensor, valid_upto: int,
     coordinates >= ``valid_upto`` are invalid; ``bitmap`` the kept set
     (``keep_tables``).  Returns int32[ceil(nb*block/32)] over the
     flattened payload (block = L - halo).  CUDA tensors launch
-    ``kssd_stream_keep`` or raise; CPU tensors run
-    :func:`keep_words_plain`.
+    ``kssd_stream_keep`` (with the bitmap's :func:`bitmap_summary`, made
+    once a bitmap) or raise; CPU tensors run :func:`keep_words_plain`.
     """
     dev = words.device
     if dev.type == "cpu":
@@ -103,17 +104,22 @@ def keep_words(words: torch.Tensor, valid: torch.Tensor, valid_upto: int,
     if not (words.is_contiguous() and valid.is_contiguous()
             and bitmap.is_contiguous()):
         raise ValueError("keep_words: inputs must be contiguous")
+    if valid.data_ptr() % 16:
+        raise ValueError("keep_words: valid must be 16-byte aligned (the "
+                         "kernel loads it 16 bytes at a time)")
     if (valid.numel() < nb * L or not 0 < nb < 1 << 16 or block <= 0
             or halo < hasher.K - 1 or bitmap.numel() * 32 < dim_size
             or dim_size >= 1 << 31):
         raise ValueError("keep_words: bad shapes")
     out = torch.empty(G, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        summary, shift = bitmap_summary(bitmap, dim_size)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _keep_lib().kssd_stream_keep(
             words.data_ptr(), nb, words.shape[1], valid.data_ptr(), halo,
             int(valid_upto), hasher.K, hasher.hoc2, bitmap.data_ptr(),
-            dim_size, out.data_ptr(), G, stream)
+            dim_size, summary.data_ptr(), summary.numel(), shift,
+            out.data_ptr(), G, stream)
     if rc != 0:
         raise RuntimeError(f"kssd_stream_keep launch failed: CUDA error {rc}")
     keep_words.launches += 1
@@ -131,7 +137,8 @@ def _keep_lib() -> ctypes.CDLL:
         fn.restype = c.c_int
         fn.argtypes = [c.c_void_p, c.c_int, c.c_int, c.c_void_p, c.c_int,
                        c.c_longlong, c.c_int, c.c_int, c.c_void_p,
-                       c.c_int32, c.c_void_p, c.c_longlong, c.c_void_p]
+                       c.c_int32, c.c_void_p, c.c_int, c.c_int, c.c_void_p,
+                       c.c_longlong, c.c_void_p]
     return lib
 
 
@@ -222,7 +229,9 @@ def compact_append(keep: torch.Tensor, words: torch.Tensor,
     start = min(count, buf_cap - cap); ``count`` int32 and ``overflow``
     bool device scalars.  ``g_cap`` is the sparse mode's group cap, None
     for dense.  Returns (new count, new overflow) device scalars.  CUDA
-    tensors launch ``kssd_stream_compact`` or raise; CPU tensors run
+    tensors launch ``kssd_stream_compact`` (one pass over tiles of
+    :func:`compact_tile_words` keep words, prefixes by look-back through
+    the stream's :class:`LookbackScratch`) or raise; CPU tensors run
     :func:`compact_append_plain`.
     """
     dev = keep.device
@@ -243,23 +252,33 @@ def compact_append(keep: torch.Tensor, words: torch.Tensor,
         raise TypeError("compact_append: int32 tensors and a bool overflow")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("compact_append: inputs must be contiguous")
-    _, _, block, G = _geometry(words, halo)
+    nb, _, block, G = _geometry(words, halo)
     if (keep.numel() != G or any(b.numel() != buf_cap for b in bufs)
             or not 0 < cap <= buf_cap < 1 << 31
             or table.numel() != hasher.dimsize_mask + 1
-            or words.numel() >= 1 << 31):
+            or words.numel() >= 1 << 31 or nb * block >= 1 << 31
+            or (g_cap is not None and g_cap < 1)):
         raise ValueError("compact_append: bad shapes")
     new_count = torch.empty((), dtype=torch.int32, device=dev)
     new_overflow = torch.empty((), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
+    lib = _compact_lib()
+    tiles = -(-G // lib.tile_words)
+    with _SCRATCH_LOCK, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _compact_lib().kssd_stream_compact(
+        key = (dev.index if dev.index is not None
+               else torch.cuda.current_device(), stream)
+        scratch = _SCRATCH.get(key)
+        if scratch is None:
+            scratch = _SCRATCH[key] = LookbackScratch(dev)
+        buf, epoch = scratch.take(tiles)
+        rc = lib.kssd_stream_compact(
             keep.data_ptr(), G, g_cap is not None, g_cap or 0,
             words.data_ptr(), words.shape[1], halo, hasher.K, hasher.hoc2,
             hasher.subk4, hasher.pf_bits, table.numel(), table.data_ptr(),
             *(b.data_ptr() for b in bufs), count.data_ptr(),
             overflow.data_ptr(), new_count.data_ptr(),
-            new_overflow.data_ptr(), batch_idx, cap, buf_cap, stream)
+            new_overflow.data_ptr(), batch_idx, cap, buf_cap,
+            buf.data_ptr(), scratch.tiles, epoch, stream)
     if rc != 0:
         raise RuntimeError(f"kssd_stream_compact launch failed: CUDA error "
                            f"{rc}")
@@ -268,6 +287,57 @@ def compact_append(keep: torch.Tensor, words: torch.Tensor,
 
 
 compact_append.launches = 0
+
+# stream_compact's flags carry an epoch in 30 bits
+EPOCH_LIMIT = 1 << 30
+
+
+def scratch_words(tiles: int) -> int:
+    """int64 words of the look-back scratch of ``tiles`` tiles: the
+    ticket, each tile's aggregate and inclusive prefix, its u32 flag."""
+    return 1 + 2 * tiles + -(-tiles // 2)
+
+
+class LookbackScratch:
+    """``stream_compact``'s look-back state on one (device, stream).
+
+    Made zeroed (flags of epoch 0, which no launch uses) and grown to
+    the largest tile count seen; each launch takes the next epoch, so
+    no launch clears it.  When the epoch would reach ``epoch_limit``
+    the state is zeroed once and the epochs start again at 1: a stale
+    flag never carries the current epoch.
+    """
+
+    def __init__(self, device, epoch_limit: int = EPOCH_LIMIT):
+        self.device = device
+        self.epoch_limit = epoch_limit
+        self.tiles = 0
+        self.epoch = 0
+        self.buf = None
+
+    def take(self, tiles: int) -> tuple[torch.Tensor, int]:
+        """(scratch of >= ``tiles`` tiles, this launch's epoch)."""
+        if tiles > self.tiles:
+            self.tiles = tiles
+            self.buf = torch.zeros(scratch_words(tiles), dtype=torch.int64,
+                                   device=self.device)
+            self.epoch = 0
+        self.epoch += 1
+        if self.epoch == self.epoch_limit:
+            self.buf.zero_()
+            self.epoch = 1
+        return self.buf, self.epoch
+
+
+# one scratch per (device index, stream handle): launches on one stream
+# run in order, so they may share it
+_SCRATCH: dict[tuple[int, int], LookbackScratch] = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def compact_tile_words() -> int:
+    """Keep words a ``stream_compact`` tile covers (builds the kernel)."""
+    return _compact_lib().tile_words
 
 
 def _compact_lib() -> ctypes.CDLL:
@@ -281,5 +351,9 @@ def _compact_lib() -> ctypes.CDLL:
                        c.c_int, c.c_int, c.c_int32, c.c_void_p,
                        c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
                        c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
-                       c.c_int, c.c_int, c.c_int, c.c_void_p]
+                       c.c_int, c.c_int, c.c_int, c.c_void_p,
+                       c.c_longlong, c.c_uint, c.c_void_p]
+        lib.kssd_stream_compact_tile_words.restype = c.c_int
+        lib.kssd_stream_compact_tile_words.argtypes = []
+        lib.tile_words = lib.kssd_stream_compact_tile_words()
     return lib

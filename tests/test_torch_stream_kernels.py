@@ -5,7 +5,10 @@
   interpret mode, at L3K10 and L2K8, with ``block % 32`` 0 and 16;
 * on a card (marker ``cuda``), both kernels equal their plain versions,
   with forced overflow, a near-full buffer and a dense kept table that
-  flags more groups than the sparse mode's ``g_cap``.
+  flags more groups than the sparse mode's ``g_cap`` (a cut also placed
+  on a ``stream_compact`` tile boundary), at keep-word counts that are
+  no multiple of the tile and below one tile, and over 100
+  back-to-back ``compact_append`` launches on one look-back scratch.
 The split ``StreamStep`` against the JAX ``_stream_step_body`` is in
 tests/test_torch_stream_step.py.
 
@@ -119,20 +122,39 @@ def test_wrappers_refuse_other_devices():
         compact_append(w, w, w, (w,) * 4, w, w, 0, h, 32, 1, 4, None)
 
 
+def _card_compact(fn, keep, tw, table_t, h, halo, cap, buf_cap, count0,
+                  g_cap, dev):
+    """(count, overflow, buffers[:count]) of one compact + append from
+    zeroed buffers."""
+    bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32, device=dev)
+                 for _ in range(4))
+    c, o = fn(keep, tw, table_t, bufs,
+              torch.tensor(count0, dtype=torch.int32, device=dev),
+              torch.zeros((), dtype=torch.bool, device=dev), 5, h, halo, cap,
+              buf_cap, g_cap)
+    return int(c), bool(o), [b[: int(c)] for b in bufs]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", [L3K10, L2K8])
-@pytest.mark.parametrize("block", [1 << 17, (1 << 17) - 16])
+@pytest.mark.parametrize("nb,block", [(16, 1 << 17), (16, (1 << 17) - 16),
+                                      (1, 2048)])
 @pytest.mark.parametrize("kept", ["shuffled", "dense"])
-def test_kernels_match_plain_on_card(cfg, block, kept):
+def test_kernels_match_plain_on_card(cfg, nb, block, kept):
     """Both kernels against their plain versions on the card, at the
-    stream step's shape, with forced overflow and a near-full buffer.
+    stream step's shape, with forced overflow and a near-full buffer;
+    at 2^17 - 16 windows a row the keep words are no multiple of
+    stream_compact's tile, and one row of 2048 is less than one tile.
     The dense kept table (half the dims kept) flags more 32-window
-    groups than the sparse mode's g_cap, so only the first g_cap count."""
+    groups than the sparse mode's g_cap, so only the first g_cap count;
+    there the group cut also lands exactly on a tile boundary."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from rabbitkssd_tpu_torch.ops.stream import compact_tile_words
+
     params = KssdParams(*cfg)
     dev = torch.device("cuda")
-    words, exc, table = _batch(params, 16, block, seed=3)
+    words, exc, table = _batch(params, nb, block, seed=3)
     if kept == "dense":
         table = np.random.default_rng(3).integers(
             0, 2 * params.dim_end, size=params.dim_size).astype(np.int32)
@@ -141,29 +163,60 @@ def test_kernels_match_plain_on_card(cfg, block, kept):
     table_t, bitmap = keep_tables(table, params.dim_end, dev)
     tw = torch.from_numpy(words.view(np.int32)).to(dev)
     valid = _valid(words, exc).to(dev)
-    upto = 16 * block - 1000
+    n = nb * block
+    upto = n - 1000
     before = keep_words.launches
     got = keep_words(tw, valid, upto, h, halo, bitmap)
     assert keep_words.launches == before + 1
     want = keep_words_plain(tw, valid, upto, h, halo, bitmap)
     assert torch.equal(got, want)
-    n = 16 * block
     g_cap = (min(n // 32, max(4096, 4 * (n >> 4 * params.drlevel) // 32))
              if params.drlevel >= 3 and n % 32 == 0 else None)
+    modes = [g_cap]
     if kept == "dense" and g_cap is not None:
-        assert int((got != 0).sum()) > g_cap
-    for cap, buf_cap, count0 in ((1 << 17, 1 << 19, 100), (8, 64, 0),
-                                 (1 << 12, 1 << 14, (1 << 14) - 100)):
-        outs = []
-        for fn in (compact_append, compact_append_plain):
-            bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32, device=dev)
-                         for _ in range(4))
-            c, o = fn(got, tw, table_t, bufs,
-                      torch.tensor(count0, dtype=torch.int32, device=dev),
-                      torch.zeros((), dtype=torch.bool, device=dev), 5, h,
-                      halo, cap, buf_cap, g_cap)
-            outs.append((int(c), bool(o), [b[: int(c)] for b in bufs]))
-        (kc, ko, kb), (pc, po, pb) = outs
-        assert (kc, ko) == (pc, po)
-        for x, y in zip(kb, pb):
-            assert torch.equal(x, y)
+        flags = (got != 0).cpu()
+        if nb > 1:
+            assert int(flags.sum()) > g_cap
+        modes.append(int(flags[: 3 * compact_tile_words()].sum()))
+    for mode in modes:
+        for cap, buf_cap, count0 in ((1 << 17, 1 << 19, 100), (8, 64, 0),
+                                     (1 << 12, 1 << 14, (1 << 14) - 100)):
+            (kc, ko, kb), (pc, po, pb) = (
+                _card_compact(fn, got, tw, table_t, h, halo, cap, buf_cap,
+                              count0, mode, dev)
+                for fn in (compact_append, compact_append_plain))
+            assert (kc, ko) == (pc, po)
+            for x, y in zip(kb, pb):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_compact_back_to_back_on_card():
+    """100 launches of compact_append on one stream (one look-back
+    scratch, a new epoch each), cycling grids of 64, 64 and 1 tiles in
+    sparse and dense mode: every count and overflow equals the plain
+    version's, and so do the last launch's buffers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    params = KssdParams(*L3K10)
+    halo = aligned_halo(params)
+    h = StreamHasher(params)
+    cycle = []
+    for nb, block, g_cap in ((16, 1 << 17, 4096), (16, (1 << 17) - 16, None),
+                             (1, 2048, 64)):
+        words, exc, table = _batch(params, nb, block, seed=nb + block)
+        table_t, bitmap = keep_tables(table, params.dim_end, dev)
+        tw = torch.from_numpy(words.view(np.int32)).to(dev)
+        keep = keep_words(tw, _valid(words, exc).to(dev), nb * block, h,
+                          halo, bitmap)
+        cycle.append((keep, tw, table_t, g_cap))
+    cap, buf_cap = 1 << 12, 1 << 14
+    want = [_card_compact(compact_append_plain, k, tw, t, h, halo, cap,
+                          buf_cap, 7, g, dev) for k, tw, t, g in cycle]
+    for i in range(100):
+        got = _card_compact(compact_append, *cycle[i % 3][:3], h, halo, cap,
+                            buf_cap, 7, cycle[i % 3][3], dev)
+        assert got[:2] == want[i % 3][:2]
+    for x, y in zip(got[2], want[99 % 3][2]):
+        assert torch.equal(x, y)
