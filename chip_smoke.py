@@ -11,10 +11,12 @@ Phases, each printing its own lines:
    csrc/stream_compact.cu), one nvcc process each, all started
    together, timed;
 3. kernels vs plain, on the card, for an L3 (L3K10, 4096 kept dims) and
-   an L2 (L2K8, 65536 kept dims) kept set; everything compared must be
-   exactly equal; CUDA-event times taken in turns (plain, kernel,
-   kernel, plain): (a) the bitmap keep test (member.cu) at the stream
-   step's shape (16 x (2^17 + 32) dims plus edge values), with one
+   an L2 (L2K8, 65536 kept dims) kept set, and for the stream kernels
+   also at L3K12 (K = 24, 36-bit hashes) and (16, 4, 1) (K = 32, the
+   full 64-bit window); everything compared must be exactly equal;
+   CUDA-event times taken in turns (plain, kernel, kernel, plain):
+   (a) the bitmap keep test (member.cu) at the stream step's shape
+   (16 x (2^17 + 32) dims plus edge values), with one
    indexing call on a bool kept-dims table as its library time;
    (b) the stream step's kernels at its shape (16 rows x (2^17 + halo)
    windows, and 2^17 - 16 payload windows a row, where 32-window groups
@@ -40,7 +42,8 @@ Phases, each printing its own lines:
 5. correctness: (a) three genomes' sketches equal the numpy oracle;
    (b) a device-counting alldist (KSSD_DIST_PATH=matmul,
    KSSD_HOST_JOIN_MAX=0) gives the same rows as the auto run; (c) the
-   golden fa.list sketches and alldist rows of the reference binary;
+   golden fa.list sketches and alldist rows of the reference binary,
+   and its FASTQ (``fq.list -n 2 -Q 40``) and query (``-q``) sketches;
    (d) with a per-batch cap of 64 survivors, every batch of three
    corpus genomes overflows on the card, and the exact re-run gives the
    main path's hash sets (the stream kernels launch twice a batch);
@@ -85,7 +88,29 @@ Phases, each printing its own lines:
    forced ``_int_mm`` counts, and the sharded ``DeviceSketcher`` on the
    corpus must give phase 4's sets with each rank's stream-kernel
    launches covering its batches.  Prints walls and every rank's sketch
-   budget.
+   budget;
+10. config 4 (BASELINE.md: the mammal/metagenome scale): two 1.2 Gbase
+   single-record genomes (files over 1 GiB, so the chunked reader) and
+   20 x 5 Mb contigs, the scripts/config4_run.py corpus (seed 77), at
+   L3K12 (K = 24, use64): (a) the CLI ``sketch`` on the card in a child
+   process (its wall, Mbase/s and its own peak RSS, the ``ru_maxrss``
+   of ``os.wait4`` in a small launcher process that starts it; the
+   stream kernels' launches cover its batches and re-runs; 64-bit
+   hashes); (b) the two genomes sketched again with the files read
+   whole (``KSSD_STREAM_THRESHOLD`` above their size) give (a)'s sets;
+   (c) three contigs (one lowercase) sketched as their own genomes
+   equal the numpy oracle; (d) the K-step hasher of the sharded sketch
+   step (``make_sharded_sketch_step``, one rank, block 2^17, cap 16,384)
+   over the contigs file and the first genome, in ``pack_blocks`` rows:
+   the union of its kept hashes equals (a)'s sets, a second device
+   formulation of the same hash; (e) ``alldist -D 1.0`` on (a)'s
+   sketch, auto and with device counting forced, gives equal sorted
+   rows, and the genomes' common count equals ``np.intersect1d``.  The
+   corpus is deleted when the phase ends;
+11. the entry points (``rabbitkssd_tpu_torch.entry``): ``entry()``
+   called twice on the card gives equal results, and
+   ``dryrun_multichip(4)`` runs 4 ranks (one a card on four cards,
+   else sharing cuda:0 over gloo).
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Catches nothing: any failure exits
@@ -101,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import glob
 import io
+import itertools
 import json
 import os
 import shutil
@@ -210,6 +236,68 @@ def make_corpus(root: str, n_genomes: int, genome_len: int, seed: int
         files.append(path)
         total += glen
     list_path = os.path.join(root, "bacteria.list")
+    with open(list_path, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return list_path, files, total
+
+
+def _write_fasta(path: str, records: list[tuple[str, np.ndarray, bytes]],
+                 rows_a_piece: int = 100_000) -> None:
+    """FASTA of 100-base lines from (name, codes 0..4, alphabet) records:
+    code c is written as byte c of the record's alphabet, a piece at a
+    time (a few MB of temporaries whatever the record's length)."""
+    with open(path, "wb") as f:
+        for name, seq, alphabet in records:
+            lut = np.frombuffer(alphabet, np.uint8)
+            f.write(b">" + name.encode() + b"\n")
+            full = len(seq) - len(seq) % 100
+            for lo in range(0, full, 100 * rows_a_piece):
+                hi = min(full, lo + 100 * rows_a_piece)
+                out = np.empty(((hi - lo) // 100, 101), np.uint8)
+                out[:, :100] = lut[seq[lo:hi]].reshape(-1, 100)
+                out[:, 100] = ord("\n")
+                f.write(out.tobytes())
+            if full < len(seq):
+                f.write(lut[seq[full:]].tobytes() + b"\n")
+
+
+def make_config4_corpus(root: str, genome_len: int,
+                        contig_len: int = 5_000_000, n_contigs: int = 20,
+                        seed: int = 77) -> tuple[str, list[str], int]:
+    """BASELINE config 4's corpus, the scripts/config4_run.py recipe with
+    the same random stream: two single-record genomes of ``genome_len``
+    and ``genome_len - 1024`` bases (one ancestor, 1 % of bases mutated,
+    16 N runs each) and ``contigs.fna``, ``n_contigs`` contigs of
+    ``contig_len`` bases, every third lowercase.  Returns (list path,
+    file paths, total bases)."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    anc = rng.integers(0, 4, size=genome_len + 64, dtype=np.int8)
+    files, total = [], 0
+    for g in range(2):
+        seq = anc[: genome_len - g * 1024].copy()
+        n_mut = genome_len // 100
+        pos = rng.integers(0, len(seq), size=n_mut)
+        seq[pos] = (seq[pos] + rng.integers(1, 4, size=n_mut)) % 4
+        for _ in range(16):  # N runs: code 4
+            st = int(rng.integers(0, len(seq) - 200))
+            seq[st: st + int(rng.integers(1, 120))] = 4
+        path = os.path.join(root, f"mammal{g}.fna")
+        _write_fasta(path, [(f"chr{g}", seq, b"ACGTN")])
+        files.append(path)
+        total += len(seq)
+        del seq
+    del anc
+    contigs = []
+    for r in range(n_contigs):
+        seq = rng.integers(0, 4, size=contig_len, dtype=np.int8)
+        contigs.append((f"contig{r}", seq, b"acgtn" if r % 3 == 0
+                        else b"ACGTN"))
+        total += contig_len
+    path = os.path.join(root, "contigs.fna")
+    _write_fasta(path, contigs)
+    files.append(path)
+    list_path = os.path.join(root, "mammal.list")
     with open(list_path, "w") as f:
         f.write("\n".join(files) + "\n")
     return list_path, files, total
@@ -539,11 +627,19 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         k1 = _events_ms(kern, reps)
         k2 = _events_ms(kern, reps)
         p2 = _events_ms(plain, reps)
-        kt, pt = _trace_ms(kern, reps), _trace_ms(plain, reps)
+        # a trace now and then holds no device activity (once in ~30
+        # traces on an H100): trace again rather than print 0
+        for _ in range(3):
+            kt = _trace_ms(kern, reps)
+            ms = (kt["busy_ms"] if name == "step" else
+                  sum(v for k, v in kt["by_name"].items()
+                      if f"{name}_kernel" in k))
+            if ms > 0:
+                break
+        _require(ms > 0, f"{name}: no device time in three traces")
+        pt = _trace_ms(plain, reps)
         times[name] = {
-            "ms": (kt["busy_ms"] if name == "step" else
-                   sum(v for k, v in kt["by_name"].items()
-                       if f"{name}_kernel" in k)),
+            "ms": ms,
             "events_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "plain_device_ms": pt["busy_ms"],
             "ms_turns": [p1, k1, k2, p2]}
@@ -853,6 +949,20 @@ def golden_checks(device, work: str) -> list[str]:
                 _require(_sorted_rows(out) == _sorted_rows(
                     os.path.join(GOLDEN, out)), f"{out} != golden")
                 done.append(out)
+        # FASTQ with the abundance and quality filters, and a query
+        # sketch (no index), as tests/golden/gen_golden.py made them
+        for lst, extra, stem in (("fq.list", ["-n", "2", "-Q", "40"],
+                                  "fq_k8s4l1"),
+                                 ("fa_query.list", ["-q"], "faq_k8s4l1")):
+            shutil.copy(os.path.join(GOLDEN, lst), root)
+            run_cli(dev + ["sketch", "-i", lst, "-o", f"{stem}.sketch", "-L",
+                           os.path.join(GOLDEN, "k8s4l1.shuf")] + extra)
+            got = _sets(f"{stem}.sketch")
+            want = _sets(os.path.join(GOLDEN, f"{stem}.sketch"))
+            _require(got.keys() == want.keys() and all(
+                np.array_equal(got[n], want[n]) for n in got),
+                f"{stem}.sketch != golden")
+            done.append(f"{stem}.sketch")
     finally:
         os.chdir(cwd)
     return done
@@ -1246,6 +1356,285 @@ def _sketch_hashes(path: str) -> list[np.ndarray]:
     return [s.hashes for s in read_sketches(path).sketches]
 
 
+# --------------------------------------------------------------------------
+# phase 10: BASELINE config 4
+# --------------------------------------------------------------------------
+
+def child_main(spec_path: str) -> None:
+    """Entry of phase 10 (a)'s child (``chip_smoke.py --child <spec>``):
+    one CLI command with the kernels' launches counted from 0; writes
+    the wall, launches, sketch budgets, its peak RSS before the command
+    (torch imported, the device's context made) and the device's peak
+    allocation to the spec's report path."""
+    import resource
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rabbitkssd_tpu_torch.host import load_native
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["argv"][spec["argv"].index("--device") + 1]
+    torch.zeros(1, device=device).sum().item()
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    _reset_launches()
+    with _env(**spec["env"]):
+        wall, err = run_cli(spec["argv"])
+    with open(spec["report"], "w") as f:
+        json.dump({"wall_s": wall, "launches": _launches(),
+                   "budgets": _budgets(err),
+                   "native": load_native() is not None,
+                   "peak_rss_before_cli_bytes": before,
+                   "device_peak_bytes": (torch.cuda.max_memory_allocated()
+                                         if device.startswith("cuda")
+                                         else None)}, f)
+
+
+# Starts one command and prints its exit code and the ru_maxrss (KiB) of
+# os.wait4.  A process's ru_maxrss starts from the high-water mark of the
+# process it was forked from (Linux carries it across the exec), so the
+# command is started from this small process, not from the smoke.
+_LAUNCHER = """
+import json, os, subprocess, sys
+p = subprocess.Popen(json.loads(sys.argv[1]), stdout=sys.stderr)
+_, status, usage = os.wait4(p.pid, 0)
+print(json.dumps([os.waitstatus_to_exitcode(status), usage.ru_maxrss]))
+"""
+
+
+def _child_cli(argv: list[str], env: dict, root: str, timeout: float = 900
+               ) -> tuple[dict, int]:
+    """:func:`child_main` in a child process: (its report, its own peak
+    RSS in bytes, the ``ru_maxrss`` of ``os.wait4``)."""
+    spec = os.path.join(root, "child.json")
+    report = os.path.join(root, "child.report.json")
+    with open(spec, "w") as f:
+        json.dump({"argv": argv, "env": env, "report": report}, f)
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", spec]
+    proc = subprocess.Popen([sys.executable, "-c", _LAUNCHER,
+                             json.dumps(cmd)], cwd=HERE,
+                            stdout=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"child {argv[2:4]}: no end in {timeout} s"
+                           ) from None
+    rc, maxrss = json.loads(out.strip().splitlines()[-1])
+    _require(proc.returncode == 0 and rc == 0,
+             f"child {argv[2:4]} exited {rc}")
+    with open(report) as f:
+        return json.load(f), maxrss * 1024  # KiB on Linux
+
+
+def _write_record(path: str, name: str, seq: bytes) -> None:
+    """One FASTA record in 100-base lines."""
+    with open(path, "wb") as f:
+        f.write(b">" + name.encode() + b"\n")
+        for lo in range(0, len(seq), 100):
+            f.write(seq[lo: lo + 100] + b"\n")
+
+
+def _encode_pieces(records, piece: int = 1 << 26) -> np.ndarray:
+    """``encode_concat`` of (seq, None) records, a piece of each record at
+    a time (its lookup makes a temporary of 8 bytes a base)."""
+    from rabbitkssd_tpu_torch.ops.kmer import encode_concat
+
+    parts = []
+    for i, (seq, _) in enumerate(records):
+        if i:
+            parts.append(np.full(1, -1, np.int8))
+        parts += [encode_concat([(seq[o: o + piece], None)])
+                  for o in range(0, len(seq), piece)]
+    return np.concatenate(parts)
+
+
+def config4(device, work: str, genome_len: int = 1_200_000_000,
+            contig_len: int = 5_000_000, threshold: int | None = None,
+            rows: int = 128) -> dict:
+    """Phase 10: BASELINE config 4 through the port on ``device``.
+    ``threshold``: ``KSSD_STREAM_THRESHOLD`` for (a) (None: the default,
+    1 GiB); ``rows``: blocks a call of (d)'s step.  A CPU rehearsal
+    lowers all three with ``genome_len``."""
+    import torch
+
+    from rabbitkssd_tpu_torch.host import (KssdParams, generate_shuffle,
+                                           oracle_hashes_numpy,
+                                           read_records, read_sketches,
+                                           write_shuffle_file)
+    from rabbitkssd_tpu_torch.ops.kmer import combine_hash_words, pack_blocks
+    from rabbitkssd_tpu_torch.parallel.sharded import (
+        Mesh, make_sharded_sketch_step)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "config4")
+    on_card = device.type == "cuda"
+    dev = ["--device", str(device)]
+    params = KssdParams(12, 6, 3)
+    nums: dict = {}
+    try:
+        t0 = time.perf_counter()
+        list_path, files, total = make_config4_corpus(root, genome_len,
+                                                      contig_len)
+        shuf = generate_shuffle(12, 6, 3)
+        shuf_path = os.path.join(root, "L3K12.shuf")
+        write_shuffle_file(shuf, shuf_path)
+        sizes = [os.path.getsize(f) for f in files]
+        limit = (1 << 30) if threshold is None else threshold
+        _require(min(sizes[:2]) > limit > sizes[2],
+                 f"file sizes {sizes} against the threshold {limit}")
+        nums.update(bases=total, file_bytes=sizes,
+                    corpus_s=time.perf_counter() - t0)
+
+        # (a) the CLI sketch in a child process, for its own peak RSS
+        sk = os.path.join(root, "c4.sketch")
+        env = {} if threshold is None else {
+            "KSSD_STREAM_THRESHOLD": str(threshold)}
+        rep, maxrss = _child_cli(dev + ["sketch", "-i", list_path, "-o",
+                                        sk, "-L", shuf_path], env, root)
+        (budget,) = rep["budgets"]
+        _launches_cover([budget], rep["launches"], on_card, "config 4 (a)")
+        _require(rep["native"], "no native reader, so no chunked reader")
+        sset = read_sketches(sk)
+        sets = {s.name: np.sort(s.hashes) for s in sset.sketches}
+        _require(sorted(sets) == sorted(files), "config 4 genome names")
+        _require(params.use64 and sset.info.id == params.sketch_id and all(
+            h.dtype == np.uint64 for h in sets.values()) and max(
+            int(h.max()) for h in sets.values()) >= 1 << 32,
+            "config 4: no 64-bit hashes")
+        nums["a"] = {"cli_wall_s": rep["wall_s"],
+                     "mbase_per_s": total / 1e6 / rep["wall_s"],
+                     "peak_rss_bytes": maxrss,
+                     "peak_rss_before_cli_bytes":
+                         rep["peak_rss_before_cli_bytes"],
+                     "device_peak_bytes": rep["device_peak_bytes"],
+                     "launches": rep["launches"],
+                     "budget": budget,
+                     "hashes": {os.path.basename(k): int(v.size)
+                                for k, v in sets.items()}}
+
+        # (b) the two genomes read whole
+        big = os.path.join(root, "big.list")
+        with open(big, "w") as f:
+            f.write("\n".join(files[:2]) + "\n")
+        sk_b = os.path.join(root, "whole.sketch")
+        _reset_launches()
+        with _env(KSSD_STREAM_THRESHOLD=str(max(sizes) + 1)):
+            wall_b, err = run_cli(dev + ["sketch", "-i", big, "-o", sk_b,
+                                         "-L", shuf_path, "-q"])
+        (budget_b,) = _budgets(err)
+        _launches_cover([budget_b], _launches(), on_card, "config 4 (b)")
+        for name, h in _sets(sk_b).items():
+            _require(np.array_equal(h, sets[name]),
+                     f"{name} read whole != chunked")
+        nums["b_whole_files_s"] = wall_b
+
+        # (c) three contigs (contig0 lowercase) as genomes of their own
+        records = list(itertools.islice(read_records(files[2]), 3))
+        c_files = []
+        for rec in records:
+            c_files.append(os.path.join(root, f"{rec.name}.fna"))
+            _write_record(c_files[-1], rec.name, rec.seq)
+        _require(records[0].seq.islower(), "contig0 is not lowercase")
+        c_list = os.path.join(root, "contigs3.list")
+        with open(c_list, "w") as f:
+            f.write("\n".join(c_files) + "\n")
+        sk_c = os.path.join(root, "contigs3.sketch")
+        run_cli(dev + ["sketch", "-i", c_list, "-o", sk_c, "-L", shuf_path,
+                       "-q"])
+        got_c = _sets(sk_c)
+        for path, rec in zip(c_files, records):
+            want = np.unique(oracle_hashes_numpy(rec.seq, params,
+                                                 shuf.shuffled_dim))
+            _require(np.array_equal(got_c[path], want),
+                     f"{rec.name} != oracle")
+            _require(np.isin(want, sets[files[2]]).all(),
+                     f"{rec.name} not in the contigs file's set")
+
+        # (d) the K-step hasher of the sharded sketch step, one rank
+        block, cap = 1 << 17, 16_384
+        halo = params.kmer_size - 1
+        step = make_sharded_sketch_step(params, Mesh(1, 1), rows, block, cap)
+        table = torch.from_numpy(shuf.shuffled_dim.astype(np.int32)).to(
+            device)
+        d = {"rows": rows, "block": block, "cap": cap, "host_s": 0.0,
+             "step_s": 0.0, "bases": 0, "calls": 0}
+        for path in (files[2], files[0]):
+            t0 = time.perf_counter()
+            codes = _encode_pieces([(r.seq, None)
+                                    for r in read_records(path)])
+            blocks, _ = pack_blocks(codes, block, params.kmer_size)
+            d["bases"] += len(codes)
+            del codes
+            d["host_s"] += time.perf_counter() - t0
+            found = []
+            t0 = time.perf_counter()
+            for lo in range(0, len(blocks), rows):
+                chunk = blocks[lo: lo + rows]
+                if len(chunk) < rows:
+                    chunk = np.concatenate([chunk, np.full(
+                        (rows - len(chunk), block + halo), -1, np.int8)])
+                h_lo, h_hi, _, tot = step(chunk, table)
+                n = int(tot[0])
+                _require(n <= cap, f"(d) {n} survivors > cap {cap}")
+                found.append(combine_hash_words(
+                    h_lo[0, :n], h_hi[0, :n], np.ones(n, bool), True))
+                d["calls"] += 1
+            d["step_s"] += time.perf_counter() - t0
+            del blocks
+            _require(np.array_equal(np.unique(np.concatenate(found)),
+                                    sets[path]),
+                     f"(d) K-step hashes of {path} != (a)'s set")
+        d["mbase_per_s"] = d["bases"] / 1e6 / d["step_s"]
+        nums["d"] = d
+
+        # (e) alldist on the use64 sketch, auto and device counting
+        outs = {}
+        for tag, extra in (("auto", {}), ("matmul", DEVICE_COUNTING)):
+            outs[tag] = os.path.join(root, f"c4.{tag}.alldist")
+            with _env(**extra):
+                nums[f"e_alldist_{tag}_s"], _ = run_cli(
+                    dev + ["alldist", "-i", sk, "-o", outs[tag], "-D",
+                           "1.0"])
+        rows_e = _sorted_rows(outs["auto"])
+        _require(rows_e == _sorted_rows(outs["matmul"]),
+                 "config 4 matmul alldist rows != auto rows")
+        pair = [c for q, hits in _rows_by_query(outs["auto"]).items()
+                for r, c, _ in hits if {q, r} == set(files[:2])]
+        want = np.intersect1d(sets[files[0]], sets[files[1]]).size
+        _require(pair == [want], f"genomes' common count {pair} != {want}")
+        nums["e_rows"] = len(rows_e) - 1
+        nums["e_genomes_common"] = want
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    return nums
+
+
+def entry_points(device) -> dict:
+    """Phase 11: ``entry()`` twice and ``dryrun_multichip(4)``."""
+    import torch
+
+    from rabbitkssd_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry(device)
+    _reset_launches()
+    first, second = fn(*args), fn(*args)
+    launches = _launches()
+    _require(all(torch.equal(x, y) for x, y in zip(first, second)),
+             "two entry() calls differ")
+    _require(int(first[4]) > 0 and not bool(first[5]),
+             f"entry(): count {int(first[4])}, overflow {bool(first[5])}")
+    t0 = time.perf_counter()
+    reports = dryrun_multichip(4, device)
+    return {"entry": {"count": int(first[4]), "launches": launches},
+            "dryrun": {"wall_s": time.perf_counter() - t0,
+                       "ranks": reports}}
+
+
 def int_mm_rate(device, rows: int = 8192, width: int = 32768,
                 reps: int = 10) -> dict:
     """int8 ops/s of torch._int_mm at a [rows, width] x [width, rows]
@@ -1308,6 +1697,13 @@ def main() -> None:
     print(f"[3 kernel] stream_keep + stream_compact, L3K10: {json.dumps(s3)}")
     s2 = stream_kernels_vs_plain(device, 8, 6, 2, seed=4)
     print(f"[3 kernel] stream_keep + stream_compact, L2K8: {json.dumps(s2)}")
+    # K = 24 (a 36-bit hash) and K = 32 (the full 64-bit window)
+    s12 = stream_kernels_vs_plain(device, 12, 6, 3, seed=5)
+    print(f"[3 kernel] stream_keep + stream_compact, L3K12: "
+          f"{json.dumps(s12)}")
+    s32 = stream_kernels_vs_plain(device, 16, 4, 1, seed=6)
+    print(f"[3 kernel] stream_keep + stream_compact, (16, 4, 1): "
+          f"{json.dumps(s32)}")
     print("[3 kernel] equal to the plain versions bit for bit: keep words, "
           "and count, overflow and buffers[:count] in every case")
 
@@ -1344,6 +1740,18 @@ def main() -> None:
               "on cuda:0 at Mesh(3, 1): ring counts equal the forced "
               "_int_mm counts, sets equal phase 4; every rank launched both "
               "stream kernels on every batch")
+        c4 = config4(device, work)
+        print(f"[10 config 4] {smi}: {json.dumps(c4)}")
+        print(f"[10 config 4] (a) CLI sketch {c4['a']['cli_wall_s']:.3f} s = "
+              f"{c4['a']['mbase_per_s']:.1f} Mbase/s, peak RSS "
+              f"{c4['a']['peak_rss_bytes'] / 2**30:.2f} GiB; (d) K-step "
+              f"sharded step {c4['d']['mbase_per_s']:.1f} Mbase/s; phase "
+              f"{c4['phase_s']:.1f} s. The chunked sets equal the whole-file "
+              "sets, three contigs equal the oracle, the K-step hashes equal "
+              "(a)'s sets, matmul rows equal auto rows")
+    ep = entry_points(device)
+    print(f"[11 entry] entry() twice, equal: {json.dumps(ep['entry'])}")
+    print(f"[11 dryrun] dryrun_multichip(4): {json.dumps(ep['dryrun'])}")
 
     rate = int_mm_rate(device)
     print(f"[6 int_mm] {json.dumps(rate)}")
@@ -1360,6 +1768,7 @@ def main() -> None:
         **{k: l3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")},
     }]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by")
     for kname, replaces in (
             ("stream_keep", "rabbitkssd_tpu/ops/pallas_member.py:78"),
             ("stream_compact", "rabbitkssd_tpu/engine/sketcher.py:218")):
@@ -1368,9 +1777,12 @@ def main() -> None:
             "name": kname, "route": "cuda",
             "source": f"rabbitkssd_tpu_torch/csrc/{SOURCES[kname]}",
             "replaces": replaces, "launches": mp["launches"][kname],
-            "max_abs_err": max(s3["max_abs_err"], s2["max_abs_err"]),
-            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_ms": None})
+            "max_abs_err": max(s["max_abs_err"] for s in (s3, s2, s12, s32)),
+            **{k: t[k] for k in timed}, "library_ms": None,
+            # the same kernel at the other phase-3 (b) configurations
+            "by_config": {cfg: {k: s["times"][kname][k] for k in timed}
+                          for cfg, s in (("L2K8", s2), ("L3K12", s12),
+                                         ("16,4,1", s32))}})
     _require(all(mp["launches"][k["name"]] > 0 for k in kernels[1:]),
              "a stream kernel never launched on the main path")
     print(json.dumps({"kernels": kernels}))
@@ -1382,5 +1794,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--child"]:
+        child_main(sys.argv[2])
     else:
         main()

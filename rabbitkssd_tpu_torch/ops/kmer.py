@@ -1,11 +1,13 @@
 """k-mer window hashing as torch ops (port of ``rabbitkssd_tpu/ops/kmer.py``).
 
-Host part: the numpy helpers the sketch path uses (copied, since the
-JAX module imports jax).  Device part: :class:`StreamHasher`, the
-bitstream formulation of ``hash_windows_stream`` — each window's
-forward code is a variable-shift extraction from three packed words,
-its reverse complement a 2-bit-group reversal, so the work per window
-is O(1) whatever k is.
+Host part: the numpy helpers of the JAX module (copied, since it
+imports jax).  Device part: :class:`StreamHasher`, the bitstream
+formulation of ``hash_windows_stream`` that the sketch stream step
+uses — each window's forward code is a variable-shift extraction from
+three packed words, its reverse complement a 2-bit-group reversal, so
+the work per window is O(1) whatever k is — and :func:`hash_windows`,
+the K-step formulation over int8 code blocks (the sharded sketch step
+and an independent check of the stream kernels).
 
 torch has no unsigned 32-bit arithmetic (uint32 lacks shifts and
 compares, int32 ``>>`` is arithmetic), so every u32 lane is carried
@@ -51,6 +53,33 @@ def pack_words_np(codes: np.ndarray) -> tuple[np.ndarray, int, np.ndarray]:
     return words, n, exc
 
 
+def pack_codes_sparse_np(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """int8 codes (-1 invalid) -> (packed2 u8, exception positions i32).
+
+    Four bases a byte, the first in the low bits; invalid positions pack
+    as 0 bits and are returned as positions into the flattened
+    ``codes``.
+    """
+    assert codes.shape[-1] % 4 == 0
+    valid = codes >= 0
+    vals = np.where(valid, codes, 0).astype(np.uint8)
+    v4 = vals.reshape(*codes.shape[:-1], -1, 4)
+    packed2 = (v4[..., 0] | (v4[..., 1] << 2) | (v4[..., 2] << 4)
+               | (v4[..., 3] << 6)).astype(np.uint8)
+    exc = np.nonzero(~valid.ravel())[0].astype(np.int32)
+    return packed2, exc
+
+
+def packed_to_words_np(packed2: np.ndarray) -> np.ndarray:
+    """Packed 2-bit rows u8[..., B] (B % 4 == 0) -> u32 word rows with 2
+    zero pad words appended (the layout :class:`StreamHasher` reads)."""
+    assert packed2.shape[-1] % 4 == 0
+    w = np.ascontiguousarray(packed2).view("<u4").reshape(
+        *packed2.shape[:-1], -1)
+    pad = np.zeros((*w.shape[:-1], 2), np.uint32)
+    return np.concatenate([w, pad], axis=-1)
+
+
 def pad_exceptions(exc: np.ndarray, flat_size: int, floor: int = 1024
                    ) -> np.ndarray:
     """Pad exception positions to a power-of-two bucket; pads carry
@@ -62,6 +91,25 @@ def pad_exceptions(exc: np.ndarray, flat_size: int, floor: int = 1024
     out = np.full(cap, flat_size, np.int32)
     out[: len(exc)] = exc
     return out
+
+
+_KEPT_CHUNK = 1024
+
+
+def kept_dims_np(table: np.ndarray, dim_end: int) -> np.ndarray:
+    """Sorted int32 dim_ids whose permuted rank survives sampling
+    (``0 <= table[d] < dim_end``), padded with -1 to a multiple of 1024
+    (1024 -1s when none survives): the JAX package's kept-set form.  The
+    port's keep test reads the same set as a bitmap
+    (``ops/member.py:keep_tables``)."""
+    t = np.asarray(table)
+    kept = np.where((t >= 0) & (t < dim_end))[0].astype(np.int32)
+    pad = (-len(kept)) % _KEPT_CHUNK
+    if pad or len(kept) == 0:
+        kept = np.concatenate(
+            [kept, np.full(max(pad, _KEPT_CHUNK if len(kept) == 0 else 0),
+                           -1, np.int32)])
+    return kept
 
 
 _BASE_LUT_NP = np.full(256, -1, dtype=np.int8)
@@ -95,6 +143,40 @@ def encode_concat(records: list[tuple[bytes, bytes | None]], least_qual: int = 0
     if not parts:
         return np.empty(0, dtype=np.int8)
     return np.concatenate(parts)
+
+
+def pack_blocks(codes: np.ndarray, block: int, K: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Split one genome's code array into [n, block+K-1] halo'd blocks.
+
+    Block b's payload is codes[b*block:(b+1)*block] with the previous
+    K-1 codes as halo prefix (first block and tail padded invalid), so
+    the windows ending at positions >= K-1 of each row are exactly the
+    payload's, each with its true preceding context.
+    Returns (codes_blocks int8[n, block+K-1], valid bool[n, block+K-1]).
+    """
+    n = max(1, -(-len(codes) // block))
+    halo = K - 1
+    out = np.full((n, block + halo), -1, dtype=np.int8)
+    for b in range(n):
+        lo = b * block
+        hi = min(len(codes), lo + block)
+        out[b, halo: halo + (hi - lo)] = codes[lo:hi]
+        hlo = max(0, lo - halo)
+        out[b, halo - (lo - hlo): halo] = codes[hlo:lo]
+    valid = out >= 0
+    return out, valid
+
+
+def combine_hash_words(h_lo: np.ndarray, h_hi: np.ndarray, keep: np.ndarray,
+                       use64: bool) -> np.ndarray:
+    """Host (lo, hi, keep) window outputs (numpy, or CPU tensors) -> flat
+    kept hash values, uint64 for ``use64`` else uint32."""
+    lo = np.asarray(h_lo)[np.asarray(keep)]
+    if use64:
+        hi = np.asarray(h_hi)[np.asarray(keep)]
+        return lo.astype(np.uint64) | (hi.astype(np.uint64) << np.uint64(32))
+    return lo.astype(np.uint32)
 
 
 # --------------------------------------------------------------------------
@@ -244,3 +326,79 @@ class StreamHasher:
             h_lo, h_hi = _deposit_field(h_lo, h_hi, high_outer,
                                         self.pf_bits + hoc2, hoc2)
         return h_lo, h_hi
+
+
+# --------------------------------------------------------------------------
+# the K-step formulation over int8 code blocks
+# --------------------------------------------------------------------------
+
+def _shift_right(x: torch.Tensor, t: int) -> torch.Tensor:
+    """x[..., i] -> x[..., i - t] along the last axis, zero-filled."""
+    if t == 0:
+        return x
+    return F.pad(x, (t, 0))[..., : x.shape[-1]]
+
+
+def _window_codes(codes: torch.Tensor, K: int):
+    """Forward and reverse-complement codes (fwd_lo, fwd_hi, rvs_lo,
+    rvs_hi, int64 in [0, 2^32)) of the window *ending* at each position
+    of ``codes`` (int64[..., L] in 0..3): K shift-ORs.  fwd holds the
+    newest base in the low bits (reference ``tuple``, sketch.cpp:502),
+    rvs the complement with the newest base in the high bits
+    (``rvs_tuple``, sketch.cpp:503).  Positions before the row start
+    shift in as base 0 (complement 3)."""
+    zeros = torch.zeros_like(codes)
+    fwd_lo = fwd_hi = rvs_lo = rvs_hi = zeros
+    for t in range(K):
+        s = _shift_right(codes, t)  # the base at window offset t, newest 0
+        c = s ^ 3
+        off = 2 * t
+        if off < 32:
+            fwd_lo = fwd_lo | (s << off)
+        else:
+            fwd_hi = fwd_hi | (s << (off - 32))
+        off2 = 2 * (K - 1 - t)
+        if off2 < 32:
+            rvs_lo = rvs_lo | (c << off2)
+        else:
+            rvs_hi = rvs_hi | (c << (off2 - 32))
+    return fwd_lo, fwd_hi, rvs_lo, rvs_hi
+
+
+def hash_windows(params: KssdParams):
+    """Block hash for fixed params, the counterpart of the JAX
+    ``hash_windows``.
+
+    Returned fn: (codes int8[..., L], valid bool[..., L], table
+    int32[dim_size], all on one device) -> (h_lo, h_hi int64[..., L] in
+    [0, 2^32), keep bool[..., L]) on that device, for the window that
+    ends at each position; positions < K-1 and windows holding an
+    invalid base have keep False.  The composition is sketch.cpp:524's,
+    as :meth:`StreamHasher.compose` forms it.  Plain torch ops: K
+    shift-ORs, a cumsum validity test and one gather into ``table``.
+    """
+    K = params.kmer_size
+    hasher = StreamHasher(params)
+    dim_end = params.dim_end
+
+    def hash_blocks(codes, valid, table):
+        c = torch.where(valid, codes.to(torch.int64), 0)
+        fwd_lo, fwd_hi, rvs_lo, rvs_hi = _window_codes(c, K)
+        ok = _windows_all_valid(valid, K)
+        use_fwd = (fwd_hi < rvs_hi) | ((fwd_hi == rvs_hi) & (fwd_lo <= rvs_lo))
+        uni_lo = torch.where(use_fwd, fwd_lo, rvs_lo)
+        uni_hi = torch.where(use_fwd, fwd_hi, rvs_hi)
+        dim_id = (_extract_field(uni_lo, uni_hi, hasher.hoc2, hasher.subk4)
+                  & hasher.dimsize_mask)
+        # one gather into the permutation table (sketch.cpp:519)
+        pf = table[dim_id]
+        keep = ok & (pf >= 0) & (pf < dim_end)
+        h_lo, h_hi = hasher.compose(uni_lo, uni_hi, pf)
+        return h_lo, h_hi, keep
+
+    return hash_blocks
+
+
+def make_hash_kernel(params: KssdParams):
+    """:func:`hash_windows` (the JAX package jits it; torch runs eagerly)."""
+    return hash_windows(params)

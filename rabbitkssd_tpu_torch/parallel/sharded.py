@@ -1,9 +1,14 @@
-"""Sharded counting over a (dp, vp) mesh of ranks.
+"""Sharded sketching and counting over a (dp, vp) mesh of ranks.
 
 Port of ``rabbitkssd_tpu/parallel/sharded.py`` (``make_mesh``,
-``make_sharded_common_step``, ``sharded_common_counts``).  There is no
-``shard_map`` in torch: each rank of the default process group *is* one
-shard, and the collectives are explicit.
+``make_sharded_sketch_step``, ``make_sharded_common_step``,
+``sharded_common_counts``).  There is no ``shard_map`` in torch: each
+rank of the default process group *is* one shard, and the collectives
+are explicit.
+
+The sketch step is data parallel: each rank hashes its own rows of
+halo'd code blocks and compacts its survivors; the per-shard results
+are all-gathered.  Counting uses both mesh axes:
 
 * **dp (data parallel)**: genome rows of both sides split across dp.
   Side 1's pair shards rotate round the dp ring (``batch_isend_irecv``
@@ -32,6 +37,8 @@ import torch.distributed as dist
 from ..ops.distance import (_host_join_max, _join_layout, _membership,
                             _memberships, _pair_counts_host, _r32,
                             membership_budget)
+from ..ops.kmer import hash_windows
+from ..params import KssdParams
 from .multihost import global_mesh, local_world, rank, subgroups, world
 
 
@@ -120,6 +127,60 @@ def allgather_columns(x: np.ndarray) -> list[np.ndarray]:
     parts = [torch.empty_like(pad) for _ in range(world())]
     dist.all_gather(parts, pad)
     return [p[:, :s].numpy() for p, s in zip(parts, sizes)]
+
+
+# --------------------------------------------------------------------------
+# sharded sketch step
+# --------------------------------------------------------------------------
+
+def make_sharded_sketch_step(params: KssdParams, mesh: Mesh, n_blocks: int,
+                             block: int, cap: int):
+    """Data-parallel sketch step over the ranks of ``mesh``.
+
+    ``fn(codes, table)``: ``codes`` int8[mesh.size * n_blocks, block + K
+    - 1], the same halo'd blocks on every rank (numpy or a tensor),
+    ``table`` the int32[dim_size] permutation on this rank's device.
+    Rank r hashes rows [r*n_blocks, (r+1)*n_blocks) on that device
+    (:func:`hash_windows`), drops the K-1 halo columns and compacts its
+    first ``cap`` kept windows in window order; slots past its ``total``
+    repeat its last window, as the JAX step's clamped searchsorted does.
+    Every rank returns the per-shard (h_lo uint32[n_shards, cap], h_hi
+    uint32[n_shards, cap], pos int32[n_shards, cap], total
+    int32[n_shards]) as numpy, ``pos`` relative to the shard's payload
+    start: the shards travel over the gloo group (none on one rank).
+    """
+    hasher = hash_windows(params)
+    halo = params.kmer_size - 1
+
+    def fn(codes, table: torch.Tensor):
+        mesh.check_world()
+        if tuple(codes.shape) != (mesh.size * n_blocks, block + halo):
+            raise ValueError(f"codes of shape {tuple(codes.shape)}, not "
+                             f"({mesh.size * n_blocks}, {block + halo})")
+        dev = table.device
+        r = rank()
+        rows = torch.as_tensor(codes[r * n_blocks: (r + 1) * n_blocks])
+        rows = rows.to(dev)
+        h_lo, h_hi, keep = hasher(rows, rows >= 0, table)
+        h_lo = h_lo[:, halo:].reshape(-1)
+        h_hi = h_hi[:, halo:].reshape(-1)
+        csum = torch.cumsum(keep[:, halo:].reshape(-1), 0, dtype=torch.int32)
+        targets = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
+        pos = torch.searchsorted(csum, targets, side="left").clamp_(
+            max=csum.numel() - 1)
+        # one int64 row of the shard's four outputs, for one gather
+        mine = torch.cat([h_lo[pos], h_hi[pos], pos, csum[-1:].long()]).cpu()
+        parts = [mine]
+        if world() > 1:
+            parts = [torch.empty_like(mine) for _ in range(world())]
+            dist.all_gather(parts, mine)
+        out = torch.stack(parts).numpy()
+        return (out[:, :cap].astype(np.uint32),
+                out[:, cap:2 * cap].astype(np.uint32),
+                out[:, 2 * cap:3 * cap].astype(np.int32),
+                out[:, 3 * cap].astype(np.int32))
+
+    return fn
 
 
 # --------------------------------------------------------------------------

@@ -16,6 +16,7 @@ PORT_MODULES = [
     "rabbitkssd_tpu_torch.device",
     "rabbitkssd_tpu_torch.host",
     "rabbitkssd_tpu_torch.cli",
+    "rabbitkssd_tpu_torch.entry",
     "rabbitkssd_tpu_torch.params",
     "rabbitkssd_tpu_torch.formats",
     "rabbitkssd_tpu_torch.seqio",

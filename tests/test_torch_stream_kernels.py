@@ -3,8 +3,9 @@
 * ``keep_words`` (plain, CPU) equals the bit-packed ``ok & member_lane``
   of the JAX ``hash_windows_stream`` with the Pallas lane kernel in
   interpret mode, at L3K10 and L2K8, with ``block % 32`` 0 and 16;
-* on a card (marker ``cuda``), both kernels equal their plain versions,
-  with forced overflow, a near-full buffer and a dense kept table that
+* on a card (marker ``cuda``), both kernels equal their plain versions
+  at L3K10, L2K8, L3K12 (K = 24) and (16, 4, 1) (K = 32), with forced
+  overflow, a near-full buffer and a dense kept table that
   flags more groups than the sparse mode's ``g_cap`` (a cut also placed
   on a ``stream_compact`` tile boundary), at keep-word counts that are
   no multiple of the tile and below one tile, and over 100
@@ -37,6 +38,8 @@ torch.set_num_threads(1)
 
 L3K10 = (10, 6, 3)
 L2K8 = (8, 6, 2)
+L3K12 = (12, 6, 3)  # K = 24: a 36-bit hash
+K32 = (16, 4, 1)  # K = 32: the full 64-bit window, a 60-bit hash
 
 
 def _batch(params, nb, block, seed):
@@ -136,7 +139,7 @@ def _card_compact(fn, keep, tw, table_t, h, halo, cap, buf_cap, count0,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cfg", [L3K10, L2K8])
+@pytest.mark.parametrize("cfg", [L3K10, L2K8, L3K12, K32])
 @pytest.mark.parametrize("nb,block", [(16, 1 << 17), (16, (1 << 17) - 16),
                                       (1, 2048)])
 @pytest.mark.parametrize("kept", ["shuffled", "dense"])

@@ -20,8 +20,10 @@ step by step in Python so that an error in it shows here first:
   flagged count, the ``cap`` cut, a near-full buffer, a grid below one
   tile, and one writer for count and one for overflow.
 
-Exact comparisons (tolerance 0): everything compared is an integer.
-The model's tile is 16 words (4 threads x 4) with a look-back window of
+Both models run at L3K10, L2K8, L3K12 (K = 24) and (16, 4, 1) (K = 32,
+where the window mask and the forward code's shift take their 64-bit
+edge).  Exact comparisons (tolerance 0): everything compared is an
+integer.  The model's tile is 16 words (4 threads x 4) with a look-back window of
 4 tiles, so that small batches span several tiles and several look-back
 windows; the card's kernel has 1024 and 32.
 """
@@ -44,6 +46,16 @@ torch.set_num_threads(1)
 
 L3K10 = (10, 6, 3)
 L2K8 = (8, 6, 2)
+L3K12 = (12, 6, 3)  # K = 24: a 36-bit hash, the complement's high word
+K32 = (16, 4, 1)  # K = 32: the full 64-bit window, a 60-bit hash
+CFGS = pytest.mark.parametrize("cfg", [L3K10, L2K8, L3K12, K32],
+                               ids=["L3K10", "L2K8", "L3K12", "K32"])
+
+
+def _kept_every(cfg) -> int:
+    """About 1 in this many dims kept: summary bits both set and clear,
+    and enough survivors in a few rows (K32's 65,536 dims: 1 in 32)."""
+    return 32 if cfg == K32 else 64
 M64 = (1 << 64) - 1
 AGGREGATE, PREFIX = 1, 2
 
@@ -195,12 +207,12 @@ def keep_model(words, valid, valid_upto, params, bitmap):
     return out
 
 
-@pytest.mark.parametrize("cfg", [L3K10, L2K8], ids=["L3K10", "L2K8"])
+@CFGS
 @pytest.mark.parametrize("block", [1024, 1040], ids=["mod32_0", "mod32_16"])
 def test_keep_model_matches_plain(cfg, block):
     params = KssdParams(*cfg)
     words, valid = _batch(params, 3, block, seed=block + cfg[0])
-    _, bitmap = _tables(cfg, 64)  # summary bits both set and clear
+    _, bitmap = _tables(cfg, _kept_every(cfg))
     upto = 3 * block - 37  # ends inside a word
     want = keep_words_plain(torch.from_numpy(words.view(np.int32)), valid,
                             upto, StreamHasher(params), aligned_halo(params),
@@ -457,13 +469,14 @@ CASES = ["dense", "sparse", "gcap_inside", "gcap_boundary", "gcap_total",
          "cap_cut", "near_full", "sub_tile"]
 
 
-@pytest.mark.parametrize("cfg", [L3K10, L2K8], ids=["L3K10", "L2K8"])
+@CFGS
 @pytest.mark.parametrize("block", [1024, 1040], ids=["mod32_0", "mod32_16"])
 @pytest.mark.parametrize("case", CASES)
 def test_compact_model_matches_plain(cfg, block, case):
     params = KssdParams(*cfg)
     nb, blk = (1, 256 + block % 32) if case == "sub_tile" else (3, block)
-    keep, words, table = _compact_case(cfg, nb, blk, 64, seed=blk + cfg[0])
+    keep, words, table = _compact_case(cfg, nb, blk, _kept_every(cfg),
+                                       seed=blk + cfg[0])
     G = keep.numel()
     n_sel = int((keep != 0).sum())
     total = int(sum(bin(int(x) & 0xFFFFFFFF).count("1") for x in keep))
