@@ -14,10 +14,18 @@ Phases, each printing its own lines:
    an L2 (L2K8, 65536 kept dims) kept set, and for the stream kernels
    also at L3K12 (K = 24, 36-bit hashes) and (16, 4, 1) (K = 32, the
    full 64-bit window); everything compared must be exactly equal;
-   CUDA-event times taken in turns (plain, kernel, kernel, plain):
+   times taken in turns (plain, kernel, kernel, plain):
    (a) the bitmap keep test (member.cu) at the stream step's shape
-   (16 x (2^17 + 32) dims plus edge values), with one
-   indexing call on a bool kept-dims table as its library time;
+   (16 x (2^17 + 32) dims plus edge values), also at the (16, 4, 1)
+   kept set (dim_size 2^16, 4096 kept dims, the summary at shift 0),
+   each against ``member_plain`` and ``table[d] < dim_end``; device time
+   a launch from torch.profiler traces of the kernel, the plain version
+   and one indexing call on a bool kept-dims table (its library time),
+   beside CUDA-event times a call, and the device time of ``dims != 0``
+   (the same bytes in and out, no lookup) as a yardstick; each kept
+   set's device times on a line of their own.  ``python3 chip_smoke.py
+   --member`` runs this part alone and prints it as one JSON line: run
+   it from several checkouts in turns to compare versions of member.cu;
    (b) the stream step's kernels at its shape (16 rows x (2^17 + halo)
    windows, and 2^17 - 16 payload windows a row, where 32-window groups
    straddle rows and the keep words are no multiple of
@@ -320,34 +328,110 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the host ranges of _trace_ms: the launches it times, and the one small
+# launch before them
+TIMED_RANGE, PRIMER_RANGE = "kssd_timed", "kssd_primer"
+# _device_ms's traces that missed device records, and what each
+# measurement then used; printed in phase 3
+TRACE_RETRIES: list[dict] = []
+# traces taken, and of those the traces with no record of the primer
+TRACE_PRIMER = {"traces": 0, "primer_unrecorded": 0}
+
+
 def _trace_ms(fn, reps: int) -> dict:
     """Device time a call of ``fn`` over ``reps`` calls, from a
     torch.profiler trace (utils/trace_report.py): the device's busy time
-    and each kernel's or copy's summed time, by name."""
+    and each kernel's or copy's summed time, by name, of the work those
+    calls launched (matched to their launch calls by correlation id),
+    the count of their launch calls, and of those the trace holds no
+    device record of.  On an H100, traces after the first few in a
+    process lost the device record of their first launch, so one small
+    launch goes first, outside the timed range; ``TRACE_PRIMER`` counts
+    the traces that lost its record."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from rabbitkssd_tpu_torch.utils.trace_report import summarize
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+        with record_function(PRIMER_RANGE):
+            torch.ones(1, device="cuda")
+            torch.cuda.synchronize()
+        with record_function(TIMED_RANGE):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory(prefix="kssd_trace_") as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        rep = summarize(path, top=1 << 20)
+        rep = summarize(path, top=1 << 20, within=TIMED_RANGE)
+        primer = summarize(path, top=0, within=PRIMER_RANGE)
+    TRACE_PRIMER["traces"] += 1
+    TRACE_PRIMER["primer_unrecorded"] += int(primer["unrecorded"] > 0)
     return {"busy_ms": rep["device_busy_ms"] / reps,
-            "by_name": {t["name"]: t["ms"] / reps for t in rep["top"]}}
+            "launches": rep["launches"], "unrecorded": rep["unrecorded"],
+            "by_name": {t["name"]: t["ms"] / reps for t in rep["top"]},
+            "count_by_name": {t["name"]: t["count"] for t in rep["top"]}}
+
+
+def _device_ms(fn, reps: int, kernel: str | None = None,
+               tries: int = 5) -> float:
+    """Device time a call of ``fn`` from a torch.profiler trace: the
+    summed time of the kernels whose name holds ``kernel`` (``reps``
+    launches of them), else the device's busy time.  A trace is whole
+    when it holds a device record of every launch the calls made; trace
+    again, up to ``tries`` times, until one is.  Else the kernel's time
+    is the mean of its launches that the fullest trace holds, and the
+    busy time (which a partial trace understates) the CUDA-event time of
+    ``reps`` calls, an upper bound; each retry and fallback is recorded
+    in ``TRACE_RETRIES``."""
+    seen, fullest = [], (-1, 0.0)
+    for _ in range(tries):
+        t = _trace_ms(fn, reps)
+        names = [k for k in t["by_name"] if kernel and kernel in k]
+        n = sum(t["count_by_name"][k] for k in names)
+        ms = (t["busy_ms"] if kernel is None else
+              sum(t["by_name"][k] for k in names) * reps / max(n, 1))
+        seen.append([t["launches"], t["unrecorded"]])
+        if t["launches"] and not t["unrecorded"]:
+            if kernel is not None and n != reps:
+                raise RuntimeError(f"{kernel}: {n} launches in a whole "
+                                   f"trace of {reps} calls")
+            if len(seen) > 1:
+                TRACE_RETRIES.append({"what": kernel or "busy",
+                                      "launches_unrecorded": seen,
+                                      "used": "trace"})
+            return ms
+        fullest = max(fullest, (n, ms))
+    if kernel is not None and fullest[0] > 0:
+        TRACE_RETRIES.append({"what": kernel, "launches_unrecorded": seen,
+                              "used": "mean of the launches traced"})
+        return fullest[1]
+    TRACE_RETRIES.append({"what": kernel or "busy",
+                          "launches_unrecorded": seen,
+                          "used": "cuda events"})
+    return _events_ms(fn, reps)
+
+
+# phase 3 (a)'s kept sets: (half_k, half_subk, drlevel) and a seed each
+MEMBER_CONFIGS = {"L3": ((10, 6, 3), 1), "L2": ((8, 6, 2), 2),
+                  "16,4,1": ((16, 4, 1), 7)}
 
 
 def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
                     seed: int, reps: int = 50) -> dict:
     """Kernel vs plain keep test on one kept set; exact equality.  The
     library time is ``kept_lut[dims]`` on the in-range dims (all but the
-    5 edge values), one indexing call on a bool table of dim_size."""
+    5 edge values), one indexing call on a bool table of dim_size.
+
+    ``ms``, ``plain_ms`` and ``library_ms`` are device time a call from
+    torch.profiler traces (the kernel's own entries; the device's busy
+    time for the plain version and the library call), taken in turns
+    plain, kernel, kernel, plain, then library; ``*call_ms`` are
+    CUDA-event times a call over ``reps`` back-to-back calls, which
+    include the host's issue of each call."""
     import torch
 
     from rabbitkssd_tpu_torch.host import generate_shuffle
@@ -378,22 +462,42 @@ def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
     lut = torch.from_numpy(kept).to(device)
     inside_dims = dims[5:].long()
     _require(torch.equal(lut[inside_dims], want[5:]), "kept_lut[d] != plain")
-    for _ in range(10):  # warm up (and the clocks)
+
+    def kern():
         member(dims, bitmap, dim_size)
+
+    def plain():
         member_plain(dims, bitmap, dim_size)
+
+    def lib():
         lut[inside_dims]
-    p1 = _events_ms(lambda: member_plain(dims, bitmap, dim_size), reps)
-    k1 = _events_ms(lambda: member(dims, bitmap, dim_size), reps)
-    k2 = _events_ms(lambda: member(dims, bitmap, dim_size), reps)
-    p2 = _events_ms(lambda: member_plain(dims, bitmap, dim_size), reps)
-    lib = _events_ms(lambda: lut[inside_dims], reps)
+
+    def same_bytes():
+        torch.ne(dims, 0)
+
+    for _ in range(10):  # warm up (and the clocks)
+        kern()
+        plain()
+        lib()
+    turns = [(plain, None), (kern, "member_bitmap_kernel"),
+             (kern, "member_bitmap_kernel"), (plain, None), (lib, None)]
+    dev = [_device_ms(fn, reps, name) for fn, name in turns]
+    call = [_events_ms(fn, reps) for fn, _ in turns]
+    # a yardstick, not the same function: one elementwise PyTorch kernel
+    # that reads the same dims and writes a bool mask of their size
+    same_bytes()
+    same_ms = _device_ms(same_bytes, reps)
     # dims in, mask out, the bitmap read once
     bound, by = _bound(5 * d.size + bitmap.numel() * 4,
                        MEMBER_OPS_PER_DIM * d.size)
     return {"kept": n_kept, "n": int(d.size), "max_abs_err": err,
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "library_ms": lib, "bound_ms": bound, "bound_by": by,
-            "ms_turns": [p1, k1, k2, p2]}
+            "ms": (dev[1] + dev[2]) / 2, "plain_ms": (dev[0] + dev[3]) / 2,
+            "library_ms": dev[4], "bound_ms": bound, "bound_by": by,
+            "call_ms": (call[1] + call[2]) / 2,
+            "plain_call_ms": (call[0] + call[3]) / 2,
+            "library_call_ms": call[4],
+            "ms_turns": dev, "call_ms_turns": call,
+            "same_bytes_ms": same_ms}
 
 
 def _step_batch(params, block: int, seed: int, nb: int = 16):
@@ -627,21 +731,11 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         k1 = _events_ms(kern, reps)
         k2 = _events_ms(kern, reps)
         p2 = _events_ms(plain, reps)
-        # a trace now and then holds no device activity (once in ~30
-        # traces on an H100): trace again rather than print 0
-        for _ in range(3):
-            kt = _trace_ms(kern, reps)
-            ms = (kt["busy_ms"] if name == "step" else
-                  sum(v for k, v in kt["by_name"].items()
-                      if f"{name}_kernel" in k))
-            if ms > 0:
-                break
-        _require(ms > 0, f"{name}: no device time in three traces")
-        pt = _trace_ms(plain, reps)
         times[name] = {
-            "ms": ms,
+            "ms": _device_ms(kern, reps,
+                             None if name == "step" else f"{name}_kernel"),
             "events_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "plain_device_ms": pt["busy_ms"],
+            "plain_device_ms": _device_ms(plain, reps),
             "ms_turns": [p1, k1, k2, p2]}
     # the host's time to issue one step (no other thread running)
     for key, fn in (("host_ms", step_new), ("plain_host_ms", step_old)):
@@ -1689,10 +1783,16 @@ def main() -> None:
     print(f"[2 build] {', '.join(SOURCES.values())} -> sm_90a (three nvcc "
           f"at once) in {time.perf_counter() - t0:.3f} s")
 
-    l3 = kernel_vs_plain(device, 10, 6, 3, seed=1)
-    print(f"[3 kernel] member_bitmap, L3 kept set: {json.dumps(l3)}")
-    l2 = kernel_vs_plain(device, 8, 6, 2, seed=2)
-    print(f"[3 kernel] member_bitmap, L2 kept set: {json.dumps(l2)}")
+    mb = {}
+    for cfg, (shape, seed) in MEMBER_CONFIGS.items():
+        r = mb[cfg] = kernel_vs_plain(device, *shape, seed=seed)
+        print(f"[3 kernel] member_bitmap, {cfg} kept set: {json.dumps(r)}")
+        print(f"[3 kernel] member_bitmap {cfg} ({r['kept']} kept dims, "
+              f"{r['n']} dims), device ms a launch ({smi}): kernel "
+              f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, kept_lut[d] "
+              f"{r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}), dims != 0 {r['same_bytes_ms']:.5f}; "
+              f"call ms: kernel {r['call_ms']:.5f}")
     s3 = stream_kernels_vs_plain(device, 10, 6, 3, seed=3)
     print(f"[3 kernel] stream_keep + stream_compact, L3K10: {json.dumps(s3)}")
     s2 = stream_kernels_vs_plain(device, 8, 6, 2, seed=4)
@@ -1706,6 +1806,9 @@ def main() -> None:
           f"{json.dumps(s32)}")
     print("[3 kernel] equal to the plain versions bit for bit: keep words, "
           "and count, overflow and buffers[:count] in every case")
+    print(f"[3 trace] {json.dumps(TRACE_PRIMER)}; traces that missed "
+          f"timed device records (launch calls and those unrecorded, each "
+          f"try; what was used): {json.dumps(TRACE_RETRIES)}")
 
     with tempfile.TemporaryDirectory(prefix="kssd_smoke_") as work:
         mp, ctx = main_path(device, work, N_GENOMES, GENOME_LEN)
@@ -1758,17 +1861,19 @@ def main() -> None:
 
     # times at the main path's shape and kept set (L3K10); member.cu is
     # off the main path (0 launches there) and keeps its phase-3 check
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by")
+    mtimed = timed + ("library_ms", "call_ms")
     kernels = [{
         "name": "member_bitmap",
         "route": "cuda",
         "source": f"rabbitkssd_tpu_torch/csrc/{SOURCES['member_bitmap']}",
         "replaces": "rabbitkssd_tpu/ops/pallas_member.py:78",
         "launches": mp["launches"]["member_bitmap"],
-        "max_abs_err": max(l3["max_abs_err"], l2["max_abs_err"]),
-        **{k: l3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
+        "max_abs_err": max(r["max_abs_err"] for r in mb.values()),
+        **{k: mb["L3"][k] for k in mtimed},
+        "by_config": {cfg: {k: r[k] for k in mtimed}
+                      for cfg, r in mb.items() if cfg != "L3"},
     }]
-    timed = ("ms", "plain_ms", "bound_ms", "bound_by")
     for kname, replaces in (
             ("stream_keep", "rabbitkssd_tpu/ops/pallas_member.py:78"),
             ("stream_compact", "rabbitkssd_tpu/engine/sketcher.py:218")):
@@ -1791,10 +1896,36 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def member_main() -> None:
+    """``--member``: phase 3 (a) alone, every kept set, as one JSON line
+    with the card's name and power limit.  Run it from several checkouts
+    in turns (A, B, B, A; an earlier one unpacked with ``git archive``
+    into a git-ignored directory) to compare two versions of member.cu
+    within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _die("torch.cuda.is_available() is False: this mode needs a card")
+    sys.path.insert(0, HERE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    device = torch.device("cuda")
+    out = {"root": HERE, "card": smi}
+    for cfg, (shape, seed) in MEMBER_CONFIGS.items():
+        out[cfg] = kernel_vs_plain(device, *shape, seed=seed)
+    out["trace_retries"] = TRACE_RETRIES
+    out["trace_primer"] = TRACE_PRIMER
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--child"]:
         child_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--member"]:
+        member_main()
     else:
         main()

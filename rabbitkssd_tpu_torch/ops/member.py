@@ -4,11 +4,12 @@ Port of ``rabbitkssd_tpu/ops/pallas_member.py`` (the Pallas
 ``_member_kernel``).  The kept set {d : 0 <= shuffled_dim[d] < dim_end}
 is carried as a bitmap of ``dim_size`` bits in int32 words (bit d of
 word d >> 5); :func:`member` looks each dim_id up in it.  On a CUDA
-tensor it launches the hand-written kernel in ``csrc/member.cu``; on a
-CPU tensor it runs :func:`member_plain`, the same lookup as torch ops.
-The sketch stream step does not call it: ``ops/stream.py`` fuses the
-same lookup (``csrc/member.cuh``) into the window hash, in front of
-which it tests the bitmap's :func:`bitmap_summary` in shared memory.
+tensor it launches the hand-written kernel in ``csrc/member.cu``, which
+tests the bitmap's :func:`bitmap_summary` in shared memory before it
+reads the bitmap; on a CPU tensor it runs :func:`member_plain`, the
+same lookup as torch ops.  The sketch stream step does not call it:
+``ops/stream.py`` fuses the same lookup (``csrc/member.cuh``, and the
+same summary) into the window hash.
 """
 
 from __future__ import annotations
@@ -41,14 +42,17 @@ def summary_np(bm: np.ndarray, dim_size: int) -> tuple[np.ndarray, int]:
     """(summary int32 words, shift) of bitmap words ``bm``: bit i of the
     summary is set iff any of bitmap words [i << shift, (i + 1) << shift)
     is nonzero, with the smallest shift that fits ``SUMMARY_BYTES``.  A
-    dim whose summary bit is 0 is not kept."""
+    dim whose summary bit is 0 is not kept.  Zero words pad the summary
+    to a multiple of 16 bytes, the unit of member.cu's bulk copy."""
     words = -(-dim_size // _BITS)
     shift = 0
     while -(-words >> shift) > 8 * SUMMARY_BYTES:
         shift += 1
     nz = np.asarray(bm[:words]) != 0
     nz = np.concatenate([nz, np.zeros(-words % (1 << shift), bool)])
-    return bitmap_np(nz.reshape(-1, 1 << shift).any(axis=1)), shift
+    summary = bitmap_np(nz.reshape(-1, 1 << shift).any(axis=1))
+    return np.concatenate([summary, np.zeros(-summary.size % 4, np.int32)]
+                          ), shift
 
 
 # summaries by bitmap tensor: id -> (data pointer, version, dim_size,
@@ -86,13 +90,15 @@ def keep_tables(shuffled_dim: np.ndarray, dim_end: int, device
     int32[dim_size], bitmap int32[dim_size/32]) on ``device``.  The
     table gives survivors their permuted rank; the bitmap is the kept
     set.  The bitmap's :func:`bitmap_summary` goes up in the same copy
-    (the bitmap is a view of the first words)."""
+    (the bitmap is a view of the first words, the summary of the last,
+    from a 16-byte boundary on)."""
     t = np.ascontiguousarray(shuffled_dim, dtype=np.int32)
     bm = bitmap_np((t >= 0) & (t < dim_end))
     summary, shift = summary_np(bm, t.size)
-    both = torch.from_numpy(np.concatenate([bm, summary])).to(device)
+    gap = np.zeros(-bm.size % 4, np.int32)
+    both = torch.from_numpy(np.concatenate([bm, gap, summary])).to(device)
     bitmap = both[: bm.size]
-    _register(bitmap, t.size, both[bm.size:], shift)
+    _register(bitmap, t.size, both[bm.size + gap.size:], shift)
     return torch.from_numpy(t).to(device), bitmap
 
 
@@ -121,10 +127,12 @@ def member_plain(dims: torch.Tensor, bitmap: torch.Tensor, dim_size: int
 def member(dims: torch.Tensor, bitmap: torch.Tensor, dim_size: int
            ) -> torch.Tensor:
     """Keep test.  CUDA tensors launch ``kssd_member_bitmap`` (counted in
-    ``member.launches``) or raise; CPU tensors run :func:`member_plain`.
+    ``member.launches``; with the bitmap's :func:`bitmap_summary`, made
+    once a bitmap) or raise; CPU tensors run :func:`member_plain`.
 
-    ``dims``: int32, contiguous; ``bitmap``: int32/uint32 words covering
-    ``dim_size`` bits, on the same device.  Returns bool of dims' shape.
+    ``dims``: int32, contiguous, any offset; ``bitmap``: int32/uint32
+    words covering ``dim_size`` bits, on the same device.  Returns bool
+    of dims' shape (no launch for no dims).
     """
     if dims.device.type == "cpu":
         if bitmap.device.type != "cpu":
@@ -145,13 +153,17 @@ def member(dims: torch.Tensor, bitmap: torch.Tensor, dim_size: int
     if not 0 < dim_size <= bitmap.numel() * _BITS or dim_size >= 1 << 31:
         raise ValueError(f"member: bitmap of {bitmap.numel()} words cannot "
                          f"cover dim_size {dim_size}")
-    lib = _lib()
     out = torch.empty(dims.shape, dtype=torch.bool, device=dims.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
     with torch.cuda.device(dims.device):
+        summary, shift = bitmap_summary(bitmap, dim_size)
         stream = torch.cuda.current_stream(dims.device).cuda_stream
         rc = lib.kssd_member_bitmap(dims.data_ptr(), dims.numel(),
                                     bitmap.data_ptr(), dim_size,
-                                    out.data_ptr(), stream)
+                                    summary.data_ptr(), summary.numel(),
+                                    shift, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"kssd_member_bitmap launch failed: CUDA error "
                            f"{rc}")
@@ -168,5 +180,6 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int32, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return lib

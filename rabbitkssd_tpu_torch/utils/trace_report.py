@@ -4,9 +4,15 @@
 ``KSSD_PROFILE_DIR``.  This reads one back and reports the trace's span,
 the device's busy time (the union of its kernel, copy and memset
 intervals, so overlapping streams count once), the busy share of the
-span, and device time summed by kernel or copy name.
+span, and device time summed by kernel or copy name.  With ``within``,
+only the device work launched inside the host ranges of that name (a
+``torch.profiler.record_function``) counts, matched to its launch calls
+by correlation id; ``launches`` and ``unrecorded`` then say how many
+launch calls those ranges made and of how many the trace holds no
+device record.
 
     python -m rabbitkssd_tpu_torch.utils.trace_report TRACE.json [--top N]
+        [--within NAME]
 """
 
 from __future__ import annotations
@@ -16,6 +22,9 @@ import json
 
 # trace event categories that run on the device
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# host API calls that put work on the device, by a part of their name
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+LAUNCH_NAMES = ("Launch", "Memcpy", "Memset")
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -34,16 +43,40 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def summarize(path: str, top: int = 20) -> dict:
+def _within(spans: list[dict], dev: list[dict], name: str
+            ) -> tuple[list[dict], int, int]:
+    """The device records of the work launched inside the host ranges
+    called ``name``, the count of launch calls there, and the count of
+    those calls with no device record."""
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in spans if e.get("cat") == "user_annotation"
+              and e.get("name") == name]
+    corr = {e.get("args", {}).get("correlation") for e in spans
+            if e.get("cat") in LAUNCH_CATS
+            and any(n in e.get("name", "") for n in LAUNCH_NAMES)
+            and any(a <= float(e["ts"]) <= b for a, b in ranges)}
+    corr.discard(None)
+    mine = [e for e in dev if e.get("args", {}).get("correlation") in corr]
+    recorded = {e["args"]["correlation"] for e in mine}
+    return mine, len(corr), len(corr - recorded)
+
+
+def summarize(path: str, top: int = 20, within: str | None = None
+              ) -> dict:
     """Span, device busy time and share, and the ``top`` device entries
-    by summed time, of the Chrome trace at ``path`` (times in ms)."""
+    by summed time, of the Chrome trace at ``path`` (times in ms); with
+    ``within``, of the device work launched inside those host ranges."""
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in spans if e.get("cat") in DEVICE_CATS]
+    extra = {}
+    if within is not None:
+        dev, launches, unrecorded = _within(spans, dev, within)
+        extra = {"launches": launches, "unrecorded": unrecorded}
     out = {"span_ms": 0.0, "device_window_ms": 0.0, "device_busy_ms": 0.0,
-           "busy_share": 0.0, "device_events": len(dev), "top": []}
+           "busy_share": 0.0, "device_events": len(dev), "top": [], **extra}
     if not spans:
         return out
     t0 = min(float(e["ts"]) for e in spans)
@@ -72,8 +105,12 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trace")
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--within", default=None,
+                    help="count only the device work launched inside the "
+                         "host ranges of this name")
     args = ap.parse_args(argv)
-    print(json.dumps(summarize(args.trace, args.top), indent=1))
+    print(json.dumps(summarize(args.trace, args.top, args.within),
+                     indent=1))
     return 0
 
 

@@ -16,9 +16,10 @@ from rabbitkssd_tpu_torch.ops.member import (bitmap_from_lane_table,
 
 torch.set_num_threads(1)
 
-# the tests/test_pallas_member.py cases; the last has R > 64 lane rounds
+# the tests/test_pallas_member.py cases; the third has R > 64 lane
+# rounds; the last an odd n, given as a view 3 dims into its tensor
 CASES = [(1 << 12, 600, 50_000), (1 << 16, 4096, 50_000),
-         (1 << 17, 80 * 128, 32_768)]
+         (1 << 17, 80 * 128, 32_768), (1 << 16, 4096, 4097)]
 
 
 @pytest.mark.parametrize("dim_size,dim_end,n", CASES)
@@ -29,13 +30,17 @@ def test_member_matches_lane_kernel(dim_size, dim_end, n):
     rng = np.random.default_rng(dim_size + dim_end)
     table = rng.permutation(dim_size).astype(np.int32)
     lt = lane_table_np(table, dim_end)
-    dims = rng.integers(0, dim_size, size=n).astype(np.int32)
+    o = 3 if n % 2 else 0
+    base = rng.integers(0, dim_size, size=n + o).astype(np.int32)
+    dims = base[o:]
     want = np.asarray(member_lane(dims, lt, interpret=True))
     np.testing.assert_array_equal(want, table[dims] < dim_end)
 
     t, bitmap = keep_tables(table, dim_end, "cpu")
     assert torch.equal(t, torch.from_numpy(table))
-    got = member(torch.from_numpy(dims), bitmap, dim_size)
+    view = torch.from_numpy(base).view(-1)[o:]
+    assert view.storage_offset() == o and view.is_contiguous()
+    got = member(view, bitmap, dim_size)
     assert got.dtype == torch.bool and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), want)
     # the JAX package's lane table carries the same kept set
@@ -61,19 +66,50 @@ def test_member_out_of_range_dims(dim_size, dim_end):
     np.testing.assert_array_equal(got.numpy().ravel(), want)
 
 
+# (half_k, half_subk, drlevel) of the kept sets chip_smoke.py times: L3
+# (4096 kept dims), L2 (65,536) and (16, 4, 1) (dim_size 2^16, summary
+# at shift 0)
+CARD_KEPT = [(10, 6, 3), (8, 6, 2), (16, 4, 1)]
+CARD_SIZES = [1, 15, 17, 4097, 16 * ((1 << 17) + 32) + 5]
+
+
 @pytest.mark.cuda
-def test_member_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("cfg", CARD_KEPT, ids=["L3", "L2", "16,4,1"])
+def test_member_kernel_matches_plain_on_card(cfg):
+    """The kernel bit-equal to member_plain at every size, dims offset
+    0-3 and the edge dims, each launch counted; then 100 back-to-back
+    launches on one stream."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    rng = np.random.default_rng(11)
-    dim_size, dim_end = 1 << 24, 4096
+    from rabbitkssd_tpu_torch.params import KssdParams
+
+    params = KssdParams(*cfg)
+    dim_size = params.dim_size
+    rng = np.random.default_rng(11 + cfg[0])
     table = rng.permutation(dim_size).astype(np.int32)
-    _, bitmap = keep_tables(table, dim_end, "cuda")
-    d = rng.integers(-4, dim_size + 4, size=(16, (1 << 17) + 32)
-                     ).astype(np.int32)
-    dims = torch.from_numpy(d).cuda()
+    _, bitmap = keep_tables(table, params.dim_end, "cuda")
+    edge = [-(2**31), -1, dim_size, 2**31 - 1, 0, dim_size - 1]
+    base = rng.integers(-4, dim_size + 4, size=CARD_SIZES[-1] + 3
+                        ).astype(np.int32)
+    base[:6] = base[-6:] = edge
+    whole = torch.from_numpy(base).cuda()
+    for n in CARD_SIZES:
+        for o in range(4):
+            dims = whole.view(-1)[o: o + n]
+            before = member.launches
+            got = member(dims, bitmap, dim_size)
+            torch.cuda.synchronize()
+            assert member.launches == before + 1
+            want = member_plain(dims, bitmap, dim_size)
+            assert torch.equal(got, want), (n, o)
+            assert torch.equal(got.cpu(), torch.from_numpy(
+                (table[np.clip(base[o: o + n], 0, dim_size - 1)]
+                 < params.dim_end) & (base[o: o + n] >= 0)
+                & (base[o: o + n] < dim_size))), (n, o)
+    dims = whole[: 16 * ((1 << 17) + 32)].view(16, -1)
+    want = member_plain(dims, bitmap, dim_size)
     before = member.launches
-    got = member(dims, bitmap, dim_size)
+    outs = [member(dims, bitmap, dim_size) for _ in range(100)]
     torch.cuda.synchronize()
-    assert member.launches == before + 1
-    assert torch.equal(got, member_plain(dims, bitmap, dim_size))
+    assert member.launches == before + 100
+    assert all(torch.equal(g, want) for g in outs)

@@ -44,6 +44,40 @@ def test_summarize_hand_made_trace(tmp_path):
     ]
 
 
+def _corr(e, c):
+    return {**e, "args": {"correlation": c}}
+
+
+def test_summarize_within_a_host_range(tmp_path, capsys):
+    """``within`` keeps the device work launched inside the named host
+    range, by correlation id, whatever its device time; a launch call
+    there with no device record is counted as unrecorded."""
+    events = [
+        _corr(_x("cuda_runtime", "cudaLaunchKernel", 10, 5), 1),  # before
+        _x("user_annotation", "timed", 100, 400),
+        _corr(_x("cuda_runtime", "cudaLaunchKernel", 110, 5), 2),
+        _corr(_x("cuda_driver", "cuLaunchKernel", 150, 5), 3),
+        _corr(_x("cuda_runtime", "cudaMemcpyAsync", 200, 5), 4),
+        _corr(_x("cuda_runtime", "cudaStreamSynchronize", 300, 5), 5),
+        _corr(_x("kernel", "primer", 20, 10), 1),
+        _corr(_x("kernel", "k_a", 90, 30), 2),   # starts before the range
+        _corr(_x("kernel", "k_a", 600, 20), 3),  # ends after it
+        _x("gpu_user_annotation", "timed", 90, 600),
+    ]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = summarize(str(path), within="timed")
+    assert (got["launches"], got["unrecorded"]) == (3, 1)
+    assert got["device_events"] == 2
+    assert got["device_busy_ms"] == 0.05
+    assert got["top"] == [{"cat": "kernel", "name": "k_a", "ms": 0.05,
+                           "count": 2}]
+    assert "launches" not in summarize(str(path))
+    capsys.readouterr()
+    assert main([str(path), "--within", "timed"]) == 0
+    assert json.loads(capsys.readouterr().out) == got
+
+
 def test_summarize_cpu_phase_trace(tmp_path, monkeypatch, capsys):
     """A phase traced on the CPU has a span and no device time; the
     module's command line prints the same summary."""
