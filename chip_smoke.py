@@ -118,7 +118,19 @@ Phases, each printing its own lines:
 11. the entry points (``rabbitkssd_tpu_torch.entry``): ``entry()``
    called twice on the card gives equal results, and
    ``dryrun_multichip(4)`` runs 4 ranks (one a card on four cards,
-   else sharing cuda:0 over gloo).
+   else sharing cuda:0 over gloo);
+12. (a) ``scripts/torch_diff_fuzz.py --against cpu --device cuda`` in a
+   child process, 16 seeded trials of random configs and corpora, the
+   port's CLI on the card against the same CLI on the CPU in every leg
+   (sketch, alldist, dist, union, sub, merge, convert, info, knobs,
+   forced overflow): no failure, every card sketch launched both stream
+   kernels on every batch, and the trials hold a 64-bit config, K = 32,
+   FASTQ and a genome over several batches; (b) BASELINE config 3
+   (scripts/config23_run.py's chain) on the card: the phase-4 corpus
+   split into halves A and B, each sketched, ``union -i A``, ``sub --rs
+   A_u --qs B``, ``merge A B`` and ``alldist -D 0.05`` of the merge (auto
+   and device counting), held to numpy set algebra over phase 4's sets
+   and to phase 4's rows, with each step's wall.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Catches nothing: any failure exits
@@ -163,6 +175,9 @@ N_REF = 192
 TOP_N = 10
 # counting forced onto the device (int8 memberships, torch._int_mm)
 DEVICE_COUNTING = {"KSSD_DIST_PATH": "matmul", "KSSD_HOST_JOIN_MAX": "0"}
+# phase 12 (a): the fuzzer's trials and seed (its 16 trials draw 64-bit
+# configs, K = 32, FASTQ and genomes over several batches)
+FUZZ_TRIALS, FUZZ_SEED = 16, 5
 # one H100 SXM's peak rates, for each kernel's bound (NVIDIA's data
 # sheet): HBM3 at 3.35 TB/s, and 32-bit lane operations at half the 67
 # TFLOP/s of float32 FMA, i.e. 132 SMs x 128 lanes x 1.98 GHz: an SM's
@@ -1729,6 +1744,125 @@ def entry_points(device) -> dict:
                        "ranks": reports}}
 
 
+# --------------------------------------------------------------------------
+# phase 12: the differential fuzzer, and BASELINE config 3
+# --------------------------------------------------------------------------
+
+def fuzz(device, work: str, trials: int = FUZZ_TRIALS, seed: int = FUZZ_SEED,
+         timeout: float = 600) -> dict:
+    """Phase 12 (a): ``scripts/torch_diff_fuzz.py --against cpu`` in a
+    child process, the port on ``device`` against the port on the CPU;
+    its JSON line, which must show no failure and, among the trials, a
+    64-bit config, K = 32, FASTQ and a genome over several batches."""
+    root = os.path.join(work, "fuzz")
+    cmd = [sys.executable, os.path.join(HERE, "scripts", "torch_diff_fuzz.py"),
+           "--against", "cpu", "--device", str(device), "--trials",
+           str(trials), "--seed", str(seed), "--root", root]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"fuzzer: no end in {timeout} s") from None
+    wall = time.perf_counter() - t0
+    sys.stderr.write(err[-6000:])
+    lines = out.strip().splitlines()
+    _require(bool(lines), f"fuzzer exited {proc.returncode} with no result")
+    rep = json.loads(lines[-1])
+    _require(proc.returncode == 0 and not rep["failures"]
+             and rep["passed"] == trials,
+             f"fuzzer exited {proc.returncode}: {json.dumps(rep['failures'])}")
+    cov = rep["coverage"]
+    _require(all(cov[k] > 0 for k in ("use64", "k32", "fastq", "multi_batch")),
+             f"fuzzer coverage {cov}: a 64-bit config, K = 32, FASTQ and a "
+             "multi-batch genome each needed")
+    _require(device.type != "cuda" or (rep["launches"]["stream_keep"] > 0
+                                       and rep["launches"]["stream_compact"]
+                                       > 0), "fuzzer: no stream kernel ran")
+    _require(rep["jax_modules_loaded"] == 0, "the fuzzer loaded jax")
+    rep["phase_s"] = wall
+    return rep
+
+
+def config3(device, work: str, ctx: dict) -> dict:
+    """Phase 12 (b): BASELINE config 3 (scripts/config23_run.py's chain)
+    through the port's CLI on ``device``: the phase-4 corpus split into
+    A, the larger half, and B, sketched apart at L3K10; ``union -i A``,
+    ``sub --rs A_u --qs B``, ``merge A B`` and ``alldist -D 0.05`` of the
+    merged sketch (auto, then with device counting forced), each held to
+    numpy set algebra over phase 4's sets and to phase 4's rows.  A is
+    the larger half so that the merged sketch keeps phase 4's genome
+    order (the largest first), which fixes each row's orientation."""
+    from rabbitkssd_tpu_torch.host import read_sketches
+
+    root = os.path.join(work, "config3")
+    os.makedirs(root)
+    files, sets = ctx["files"], ctx["sets"]
+    half = len(files) // 2
+    parts = {"A": files[half:], "B": files[:half]}  # files grow with g
+    dev = ["--device", str(device)]
+    walls, launches = {}, {}
+    for name, part in parts.items():
+        lst = os.path.join(root, f"{name}.list")
+        with open(lst, "w") as f:
+            f.write("\n".join(part) + "\n")
+        _reset_launches()
+        walls[f"sketch_{name}_s"], err = run_cli(
+            dev + ["sketch", "-i", lst, "-o", os.path.join(root, name),
+                   "-L", ctx["shuf_path"]])
+        launches[name] = _launches()
+        _launches_cover(_budgets(err), launches[name],
+                        device.type == "cuda", f"config 3 sketch {name}")
+        got = _sets(os.path.join(root, f"{name}.sketch"))
+        _require(sorted(got) == sorted(part) and all(
+            np.array_equal(h, sets[g]) for g, h in got.items()),
+            f"config 3: {name}'s sets != phase 4")
+    a_sk, b_sk = (os.path.join(root, f"{n}.sketch") for n in "AB")
+    a_u, b_sub, merged = (os.path.join(root, n) for n in
+                          ("A_u.sketch", "B_sub.sketch", "AB.sketch"))
+    walls["union_s"], _ = run_cli(dev + ["union", "-i", a_sk, "-o", a_u])
+    union = _sets(a_u)
+    want_u = np.unique(np.concatenate([sets[g] for g in parts["A"]]))
+    _require(len(union) == 1 and np.array_equal(
+        next(iter(union.values())), want_u), "config 3: union != union1d")
+    walls["sub_s"], _ = run_cli(dev + ["sub", "--rs", a_u, "--qs", b_sk,
+                                       "-o", b_sub])
+    subbed = _sets(b_sub)
+    _require(sorted(subbed) == sorted(parts["B"]) and all(
+        np.array_equal(h, np.setdiff1d(sets[g], want_u))
+        for g, h in subbed.items()), "config 3: sub != setdiff1d")
+    mlist = os.path.join(root, "merge.list")
+    with open(mlist, "w") as f:
+        f.write(f"{a_sk}\n{b_sk}\n")
+    walls["merge_s"], _ = run_cli(dev + ["merge", "-i", mlist, "-o", merged])
+    names = [s.name for s in read_sketches(merged).sketches]
+    got = _sets(merged)
+    _require(names == [s.name for s in read_sketches(a_sk).sketches]
+             + [s.name for s in read_sketches(b_sk).sketches]
+             and all(np.array_equal(h, sets[g]) for g, h in got.items()),
+             "config 3: merge is not A then B with equal sets")
+    rows = {}
+    for tag, extra in (("auto", {}), ("matmul", DEVICE_COUNTING)):
+        out = os.path.join(root, f"AB.{tag}.alldist")
+        with _env(**extra):
+            walls[f"alldist_{tag}_s"], _ = run_cli(
+                dev + ["alldist", "-i", merged, "-o", out, "-D", MAX_DIST])
+        rows[tag] = _sorted_rows(out)
+        _require(rows[tag] == ctx["rows"],
+                 f"config 3: merged alldist ({tag}) rows != phase 4's")
+    return {"A": len(parts["A"]), "B": len(parts["B"]),
+            "union_hashes": int(want_u.size),
+            "sub_hashes": int(sum(h.size for h in subbed.values())),
+            "rows": len(rows["auto"]) - 1, "launches": launches,
+            "walls": walls}
+
+
 def int_mm_rate(device, rows: int = 8192, width: int = 32768,
                 reps: int = 10) -> dict:
     """int8 ops/s of torch._int_mm at a [rows, width] x [width, rows]
@@ -1852,9 +1986,22 @@ def main() -> None:
               f"{c4['phase_s']:.1f} s. The chunked sets equal the whole-file "
               "sets, three contigs equal the oracle, the K-step hashes equal "
               "(a)'s sets, matmul rows equal auto rows")
-    ep = entry_points(device)
-    print(f"[11 entry] entry() twice, equal: {json.dumps(ep['entry'])}")
-    print(f"[11 dryrun] dryrun_multichip(4): {json.dumps(ep['dryrun'])}")
+        ep = entry_points(device)
+        print(f"[11 entry] entry() twice, equal: {json.dumps(ep['entry'])}")
+        print(f"[11 dryrun] dryrun_multichip(4): {json.dumps(ep['dryrun'])}")
+        fz = fuzz(device, work)
+        print(f"[12 fuzz] (a) {json.dumps(fz)}")
+        print(f"[12 fuzz] (a) {smi}: {fz['passed']} of {fz['trials']} trials "
+              f"(seed {fz['seed']}), {fz['legs']} legs, cuda against cpu, "
+              f"no failure; coverage {json.dumps(fz['coverage'])}; knobs "
+              f"{', '.join(fz['knobs'])}; launches "
+              f"{json.dumps(fz['launches'])}; fuzzer wall {fz['wall_s']:.1f} "
+              f"s, phase {fz['phase_s']:.1f} s")
+        c3 = config3(device, work, ctx)
+        print(f"[12 config 3] (b) {smi}: {json.dumps(c3)}")
+        print("[12 config 3] (b) A and B equal phase 4's sets, union equals "
+              "union1d, sub equals setdiff1d, merge is A then B, the merged "
+              "alldist rows (auto and device counting) equal phase 4's")
 
     rate = int_mm_rate(device)
     print(f"[6 int_mm] {json.dumps(rate)}")
