@@ -199,7 +199,8 @@ def _load_or_sketch(list_or_sketch: str, shuf_file: str, device,
                     write_index(sk, dic, idx)
         barrier()  # no rank reads an index still being written
         return sk, sketch_out
-    shuf = read_shuffle_file(shuf_file)
+    with phase("read shuffle file"):
+        shuf = read_shuffle_file(shuf_file)
     with phase("computing sketches and save sketches into file"):
         sk = sketch_file_list(list_or_sketch, shuf, device=device,
                               least_qual=least_qual,
@@ -207,7 +208,8 @@ def _load_or_sketch(list_or_sketch: str, shuf_file: str, device,
                               threads=max(0, threads))
         sketch_out = list_or_sketch + ".sketch"
         if is_writer():
-            save_sketches(sk, sketch_out)
+            with phase("save sketches"):
+                save_sketches(sk, sketch_out)
     if build_index_if_missing and is_writer():
         with phase("transSketches"):
             write_index(sk, sketch_out + ".dict", sketch_out + ".index")
@@ -240,7 +242,8 @@ def cmd_sketch(args) -> int:
             shutil.move(args.input, args.output)
         return 0
     _eprint(f"---read the shuffle file: {args.shuf_file}")
-    shuf = read_shuffle_file(args.shuf_file)
+    with phase("read shuffle file"):
+        shuf = read_shuffle_file(args.shuf_file)
     with phase("computing sketches and save sketches into file"):
         sk = sketch_file_list(args.input, shuf, device=args.device,
                               least_qual=args.leastQuality,
@@ -250,7 +253,8 @@ def cmd_sketch(args) -> int:
                else args.output + ".sketch")
         if not is_writer():
             return 0
-        save_sketches(sk, out)
+        with phase("save sketches"):
+            save_sketches(sk, out)
     _eprint(f"save the sketches into: {out}")
     if not args.query:
         with phase("transSketches"):

@@ -33,6 +33,7 @@ import queue
 import sys
 import threading
 from time import perf_counter as _pc
+from time import thread_time as _cpu
 from typing import Iterator
 
 import numpy as np
@@ -48,7 +49,7 @@ from ..parallel.multihost import local_world, rank
 from ..parallel.sharded import Mesh, allgather_columns, any_rank, make_mesh
 from ..params import KssdParams
 from ..seqio import read_records
-from ..utils.timers import progress_bar_size
+from ..utils.timers import phase, progress_bar_size
 
 # batches per carry-buffer drain: bounds the pending batches' device
 # words kept for the overflow re-run, and lets flush + finalize overlap
@@ -356,13 +357,15 @@ class WordTapeFeeder:
 # host threads (copied from the JAX package)
 # --------------------------------------------------------------------------
 
-def _prefetch_chunks(gen, depth: int = 4):
+def _prefetch_chunks(gen, depth: int = 4, waited=None):
     """Run a chunk generator on its own thread, `depth` chunks ahead.
 
     The returned iterator yields the same items; exceptions from the
     source re-raise at the consumer.  Abandoning the iterator (error
     mid-pipeline, generator close/GC) cancels the worker and closes the
-    source generator — no leaked thread, fd, or buffered chunks."""
+    source generator — no leaked thread, fd, or buffered chunks.
+    ``waited(t0)``, if given, is called after each wait for an item that
+    began at ``perf_counter()`` time ``t0``."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     cancelled = threading.Event()
 
@@ -386,7 +389,10 @@ def _prefetch_chunks(gen, depth: int = 4):
     def out():
         try:
             while True:
+                t0 = _pc()
                 item = q.get()
+                if waited is not None:
+                    waited(t0)
                 if item is None:
                     return
                 if isinstance(item, BaseException):
@@ -501,17 +507,32 @@ class DeviceSketcher:
                 torch.zeros((), dtype=torch.bool, device=dev))
 
     def _upload(self, b: _TapeBatch, flat_size: int):
-        """Host batch -> (words, exc) device tensors.  On CUDA the host
-        copies are pinned so the copies are asynchronous; the caching
-        host allocator keeps a pinned block alive until its copy ends."""
+        """Host batch -> (words, exc) device tensors and the seconds
+        spent pinning.  On CUDA the host copies are pinned so the copies
+        are asynchronous; the caching host allocator keeps a pinned
+        block alive until its copy ends."""
         w = torch.from_numpy(b.words.view(np.int32))
         # int64, the index type of the step's index_fill_
         e = torch.from_numpy(
             pad_exceptions(b.exc, flat_size).astype(np.int64))
         if self.device.type == "cuda":
-            return (w.pin_memory().to(self.device, non_blocking=True),
-                    e.pin_memory().to(self.device, non_blocking=True))
-        return w, e
+            t0 = _pc()
+            w = w.pin_memory()
+            pin = _pc() - t0
+            w = w.to(self.device, non_blocking=True)
+            t0 = _pc()
+            e = e.pin_memory()
+            pin += _pc() - t0
+            return w, e.to(self.device, non_blocking=True), pin
+        return w, e, 0.0
+
+    def _pinned_allocs(self) -> int | None:
+        """Pinned blocks the caching host allocator has made so far in
+        this process: 0 off CUDA, None where torch keeps no such count
+        (its stats are empty until the first pinned block, too)."""
+        if self.device.type != "cuda":
+            return 0
+        return torch.cuda.host_memory_stats().get("num_host_alloc")
 
     def _local(self, b: _TapeBatch) -> _TapeBatch:
         """This rank's shard of a feeder batch, sliced on the host before
@@ -567,11 +588,20 @@ class DeviceSketcher:
 
         # itemized wall budget (read via .last_budget): the three threads
         # overlap, so components sum to MORE than the wall unless one
-        # role is the bottleneck
+        # role is the bottleneck.  Parts of one role: parse_wait of feed
+        # (the producer blocked on the parser; sketch_files sets it) and
+        # pin of h2d_put.  consumer_cpu: the consumer thread's CPU
+        # seconds over its whole loop (dispatch, qwait and the flush
+        # hand-offs), read at the loop's ends only: a read a batch (a
+        # system call each) made dispatch 2.6x slower on an H100 host
+        # (PERF.md §6).  It does not tell the step's work from waits
+        # that cost CPU time.
         B = {"feed": 0.0, "h2d_put": 0.0, "qwait": 0.0, "dispatch": 0.0,
              "flush_scalars": 0.0, "flush_collect": 0.0, "finalize": 0.0,
              "drain": 0.0, "wall": 0.0, "h2d_bytes": 0, "batches": 0,
-             "reruns": 0, "exchange": 0.0}
+             "reruns": 0, "exchange": 0.0, "parse_wait": 0.0, "pin": 0.0,
+             "pinned_allocs": 0, "consumer_cpu": 0.0}
+        allocs = self._pinned_allocs() or 0
         t_start = _pc()
 
         def collect(cur_bufs, cur_count, pending_batches):
@@ -644,8 +674,9 @@ class DeviceSketcher:
                             break
                         batch = self._local(batch)
                         t0 = _pc()
-                        dw, de = self._upload(batch, flat_size)
+                        dw, de, pin = self._upload(batch, flat_size)
                         B["h2d_put"] += _pc() - t0
+                        B["pin"] += pin
                         B["h2d_bytes"] += batch.words.nbytes
                         B["batches"] += 1
                         # the pending batch keeps only its device tensors,
@@ -660,6 +691,7 @@ class DeviceSketcher:
         t = threading.Thread(target=producer, daemon=True, name="kssd-feed")
         t.start()
         flusher = _AsyncFlusher(flush)
+        cpu0 = _cpu()
         try:
             while True:
                 t0 = _pc()
@@ -679,6 +711,7 @@ class DeviceSketcher:
                     overflow, len(pending), batch.valid_upto)
                 B["dispatch"] += _pc() - t0
                 pending.append(batch)
+            B["consumer_cpu"] = _cpu() - cpu0
             t.join()
             t_loop_end = _pc()
             if pending:
@@ -694,6 +727,8 @@ class DeviceSketcher:
         out = finalizer.finish()
         B["finalize"] += _pc() - t0
         B["wall"] = _pc() - t_start
+        n = self._pinned_allocs()
+        B["pinned_allocs"] = None if n is None else n - allocs
         self.last_budget = {k: (round(v, 4) if isinstance(v, float) else v)
                             for k, v in B.items()}
         return out
@@ -720,12 +755,26 @@ class DeviceSketcher:
             if (load_native() is not None
                     and os.stat(path).st_size > stream_threshold):
                 return _prefetch_chunks(
-                    fasta_packed_chunks(path, self.least_qual))
+                    fasta_packed_chunks(path, self.least_qual),
+                    waited=waited)
             pk = fasta_packed(path, self.least_qual)
             if pk is None:  # no native toolchain: python parser
                 recs = [(r.seq, r.qual) for r in read_records(path)]
                 pk = pack_words_np(encode_concat(recs, self.least_qual))
             return pk
+
+        parse_wait = 0.0
+
+        def waited(t0: float) -> None:
+            # on the producer thread: it blocked on the parser since t0
+            nonlocal parse_wait
+            parse_wait += _pc() - t0
+
+        def result(fut):
+            t0 = _pc()
+            got = fut.result()
+            waited(t0)
+            return got
 
         def gen() -> Iterator:
             # bounded parallel parse (the native parser releases the GIL);
@@ -743,11 +792,11 @@ class DeviceSketcher:
                 ring = len(futs)
                 i = 0
                 for path in it:
-                    yield futs[i % ring].result()
+                    yield result(futs[i % ring])
                     futs[i % ring] = ex.submit(parse, path)
                     i += 1
                 for j in range(ring):
-                    yield futs[(i + j) % ring].result()
+                    yield result(futs[(i + j) % ring])
 
         step_pb = progress_bar_size(len(files))
 
@@ -757,7 +806,9 @@ class DeviceSketcher:
                     print(f"finshed sketching: {i} genomes", file=sys.stderr)
                 yield codes
 
-        hashes, n = self.sketch_codes(gen_progress())
+        with phase("stream pipeline"):
+            hashes, n = self.sketch_codes(gen_progress())
+        self.last_budget["parse_wait"] = round(parse_wait, 4)
         # one JSON line: where the pipeline's wall went, per thread role
         print(f"sketch budget: {json.dumps(self.last_budget)}",
               file=sys.stderr)

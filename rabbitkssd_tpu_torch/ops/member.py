@@ -20,6 +20,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..utils.timers import phase
 from ._build import load_cuda_lib
 
 _BITS = 32
@@ -92,14 +93,19 @@ def keep_tables(shuffled_dim: np.ndarray, dim_end: int, device
     set.  The bitmap's :func:`bitmap_summary` goes up in the same copy
     (the bitmap is a view of the first words, the summary of the last,
     from a 16-byte boundary on)."""
-    t = np.ascontiguousarray(shuffled_dim, dtype=np.int32)
-    bm = bitmap_np((t >= 0) & (t < dim_end))
-    summary, shift = summary_np(bm, t.size)
-    gap = np.zeros(-bm.size % 4, np.int32)
-    both = torch.from_numpy(np.concatenate([bm, gap, summary])).to(device)
+    with phase("keep table build"):
+        t = np.ascontiguousarray(shuffled_dim, dtype=np.int32)
+        bm = bitmap_np((t >= 0) & (t < dim_end))
+        summary, shift = summary_np(bm, t.size)
+        gap = np.zeros(-bm.size % 4, np.int32)
+        both = np.concatenate([bm, gap, summary])
+    # blocking copies: the span ends with both tables on the device
+    with phase("keep table upload"):
+        both = torch.from_numpy(both).to(device)
+        table = torch.from_numpy(t).to(device)
     bitmap = both[: bm.size]
     _register(bitmap, t.size, both[bm.size + gap.size:], shift)
-    return torch.from_numpy(t).to(device), bitmap
+    return table, bitmap
 
 
 def bitmap_from_lane_table(lane_tab: np.ndarray, dim_size: int

@@ -90,10 +90,15 @@ def _sorted_rows(path):
     return lines[0], sorted(lines[1:])
 
 
-def _golden_dir(tmp_path):
+@pytest.fixture
+def golden_dir(tmp_path):
+    """The golden genomes and list; the 1 GiB dense index a 32-bit
+    sketch writes is deleted when the test ends."""
     shutil.copytree(os.path.join(GOLDEN, "genomes"), tmp_path / "genomes")
     shutil.copy(os.path.join(GOLDEN, "fa.list"), tmp_path)
-    return tmp_path
+    yield tmp_path
+    for path in tmp_path.glob("*.index"):
+        path.unlink()
 
 
 @pytest.mark.parametrize("k,max_dist,outputs", [
@@ -101,9 +106,9 @@ def _golden_dir(tmp_path):
     (8, "1.0", [("alldist", []), ("allcont", ["-M", "1"])]),
     (10, "0.5", [("alldist", [])]),
 ])
-def test_cli_goldens(tmp_path, monkeypatch, k, max_dist, outputs):
+def test_cli_goldens(golden_dir, monkeypatch, k, max_dist, outputs):
     """Port CLI sketch + alldist == the reference binary's rows."""
-    monkeypatch.chdir(_golden_dir(tmp_path))
+    monkeypatch.chdir(golden_dir)
     stem = f"fa_k{k}s4l1"
     assert port_main(["--device", "cpu", "sketch", "-i", "fa.list", "-o",
                       f"{stem}.sketch", "-L",

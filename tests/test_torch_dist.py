@@ -39,12 +39,15 @@ def _sorted_rows(path):
 def golden_dir(tmp_path_factory):
     """The golden genomes, query list and k8s4l1 reference sketch in one
     directory (the list names genomes relatively); the reference-side
-    index is built once, by the first CLI run."""
+    index is built once, by the first CLI run, and deleted (1 GiB) when
+    the module ends."""
     root = tmp_path_factory.mktemp("golden_dist")
     shutil.copytree(os.path.join(GOLDEN, "genomes"), root / "genomes")
     shutil.copy(os.path.join(GOLDEN, "fa_query.list"), root)
     shutil.copy(os.path.join(GOLDEN, "fa_k8s4l1.sketch"), root)
-    return root
+    yield root
+    for path in root.glob("*.index"):
+        path.unlink()
 
 
 @pytest.mark.parametrize("n_top,golden", [(0, "fa_k8s4l1.dist"),
