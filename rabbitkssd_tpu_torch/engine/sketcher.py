@@ -41,8 +41,8 @@ import torch
 
 from ..device import resolve_device
 from ..formats import Sketch, SketchInfo, SketchSet
-from ..ops.kmer import StreamHasher, encode_concat, pack_words_np, \
-    pad_exceptions
+from ..ops.kmer import StreamHasher, encode_concat, exc_bucket, \
+    pack_words_np, pad_exceptions
 from ..ops.member import keep_tables
 from ..ops.stream import compact_append, keep_words
 from ..parallel.multihost import local_world, rank
@@ -128,7 +128,8 @@ class StreamStep:
 @dataclasses.dataclass
 class _TapeBatch:
     # words and exc become their device tensors once uploaded (int32
-    # view of the words; exc padded by pad_exceptions)
+    # view of the words; exc padded by pad_exceptions); on CUDA words is
+    # first the page-locked slot that the feeder wrote
     words: np.ndarray  # uint32[n_blocks, (block + halo)/16 + 2]
     exc: np.ndarray  # int32[k] invalid positions, halo'd-row flat coords
     base: int  # tape offset of this batch's first payload position
@@ -158,6 +159,12 @@ class WordTapeFeeder:
     emitted per batch in halo'd-row flat coordinates (a position in the
     last ``halo`` of a block also appears in the next row's halo).
 
+    ``rows_out()``, if given, returns the array that the next batch's
+    rows are written into, in place of a fresh zeroed one: uint32
+    ``[n_blocks, nw_row]`` whose two pad columns are zero; its other
+    words may hold anything, as every one is written.  The batch's
+    ``words`` is that array.
+
     Cross-thread invariant: ``starts``/``ends`` are APPEND-ONLY, written
     solely by the producer thread that iterates the feeder, and a
     genome's entries are appended before the batch covering its tape
@@ -169,9 +176,11 @@ class WordTapeFeeder:
     snapshot-under-lock here.
     """
 
-    def __init__(self, sources, n_blocks: int, block: int, halo: int):
+    def __init__(self, sources, n_blocks: int, block: int, halo: int,
+                 rows_out=None):
         assert block % 16 == 0 and halo % 16 == 0
         self._src = iter(sources)
+        self._rows_out = rows_out
         self.n_blocks = n_blocks
         self.block = block
         self.halo = halo
@@ -330,13 +339,18 @@ class WordTapeFeeder:
                 return
             parts = self._take_words(WP)
             flat = np.concatenate([tail, *parts])
+            # a tail's rows past the tape are written as zeros too: a
+            # reused destination holds the words of an earlier batch
             if len(flat) < WH + WP:
                 flat = np.concatenate(
                     [flat, np.zeros(WH + WP - len(flat), np.uint32)]
                 )
-            rows = np.zeros((self.n_blocks, nw_row), np.uint32)
-            for b in range(self.n_blocks):
-                rows[b, : WB + WH] = flat[b * WB : b * WB + WB + WH]
+            rows = (np.zeros((self.n_blocks, nw_row), np.uint32)
+                    if self._rows_out is None else self._rows_out())
+            # one strided copy: row b is flat[b * WB : b * WB + WB + WH]
+            rows[:, : WB + WH] = np.lib.stride_tricks.as_strided(
+                flat, shape=(self.n_blocks, WB + WH),
+                strides=(WB * flat.itemsize, flat.itemsize), writeable=False)
             tail = flat[WP:].copy()
             exc_tape = np.concatenate([halo_exc, self._take_exc(base + P)])
             halo_exc = exc_tape[exc_tape >= base + P - self.halo]
@@ -445,6 +459,95 @@ class _AsyncFlusher:
 
 
 # --------------------------------------------------------------------------
+# page-locked staging (CUDA)
+# --------------------------------------------------------------------------
+
+# batches the producer may run ahead of the consumer
+_QUEUE_DEPTH = 8
+
+
+@dataclasses.dataclass
+class _Slot:
+    words: torch.Tensor  # int32[n_rows, nw_row], pad columns zero
+    rows: np.ndarray  # the same memory as uint32, the feeder's destination
+    fence: object  # event recorded after the slot's copies were issued
+    exc: torch.Tensor  # int32[region]: the trash slot from n_exc on
+    exc_np: np.ndarray  # the same memory
+    n_exc: int = 0  # exceptions the slot's last batch wrote
+
+
+class _StagingRing:
+    """Page-locked host slots that the producer assembles batches into,
+    and uploads from, once each.
+
+    :meth:`take` (the feeder's ``rows_out``) moves to the next slot and,
+    if that slot's last copies have not ended, waits on its fence
+    (``waits`` counts such batches, ``wait_s`` sums the waits);
+    :meth:`exceptions` writes a batch's exceptions into the slot, padded
+    with ``trash`` (the step's trash slot) to their bucket, growing the
+    slot's region to a larger bucket; :meth:`sent` fences the copies
+    just issued from the slot.  ``pin=False`` and a ``fence`` class with
+    ``record``, ``query`` and ``synchronize`` let the CPU run the same
+    rotation."""
+
+    def __init__(self, depth: int, n_rows: int, nw_row: int, trash: int,
+                 pin: bool = True, fence=None):
+        self._pin = pin
+        self._trash = trash
+        fence = fence or torch.cuda.Event
+        self.slots = []
+        for _ in range(depth):
+            w = torch.empty((n_rows, nw_row), dtype=torch.int32,
+                            pin_memory=pin)
+            w[:, nw_row - 2:] = 0  # the StreamHasher's pads, never written
+            # 4096 exceptions hold a batch's genome-end pads and short N
+            # runs; a batch with more grows its slot's region
+            self.slots.append(_Slot(w, w.numpy().view(np.uint32), fence(),
+                                    *self._region(4096)))
+        self._i = -1
+        self.waits = 0
+        self.wait_s = 0.0
+
+    def _region(self, n: int) -> tuple[torch.Tensor, np.ndarray]:
+        e = torch.full((n,), self._trash, dtype=torch.int32,
+                       pin_memory=self._pin)
+        return e, e.numpy()
+
+    @property
+    def slot(self) -> _Slot:
+        """The slot last taken."""
+        return self.slots[self._i]
+
+    def take(self) -> np.ndarray:
+        self._i = (self._i + 1) % len(self.slots)
+        s = self.slots[self._i]
+        t0 = _pc()
+        if not s.fence.query():
+            self.waits += 1
+            s.fence.synchronize()
+        self.wait_s += _pc() - t0
+        return s.rows
+
+    def exceptions(self, exc: np.ndarray) -> torch.Tensor:
+        s = self.slot
+        n, cap = len(exc), exc_bucket(len(exc))
+        if cap > len(s.exc):
+            s.exc, s.exc_np = self._region(cap)
+            s.n_exc = 0
+        # past n_exc the region holds the trash slot: only the last
+        # batch's surplus goes back to it (a fill of the whole bucket
+        # releases the interpreter lock, and the producer then waits to
+        # take it back)
+        s.exc_np[n:s.n_exc] = self._trash
+        s.exc_np[:n] = exc
+        s.n_exc = n
+        return s.exc[:cap]
+
+    def sent(self) -> None:
+        self.slot.fence.record()
+
+
+# --------------------------------------------------------------------------
 # sketcher
 # --------------------------------------------------------------------------
 
@@ -498,6 +601,7 @@ class DeviceSketcher:
         self.step = StreamStep(params, self.cap, self.buf_cap)
         self.last_budget = None
         self.last_peak_pending = 0
+        self._ring = None  # made at the first sketch on CUDA
 
     def _fresh_buffers(self, buf_cap: int):
         dev = self.device
@@ -506,25 +610,41 @@ class DeviceSketcher:
         return (bufs, torch.zeros((), dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.bool, device=dev))
 
-    def _upload(self, b: _TapeBatch, flat_size: int):
+    def _staging_ring(self, nw_row: int, flat_size: int
+                      ) -> _StagingRing | None:
+        """The page-locked ring on CUDA, made once per sketcher; None
+        off CUDA, where batches go up from the feeder's own arrays."""
+        if self.device.type != "cuda":
+            return None
+        if self._ring is None:
+            self._ring = _StagingRing(_QUEUE_DEPTH + 2,
+                                      self.mesh.size * self.n_blocks, nw_row,
+                                      flat_size)
+        return self._ring
+
+    def _upload(self, b: _TapeBatch, flat_size: int,
+                ring: _StagingRing | None = None):
         """Host batch -> (words, exc) device tensors and the seconds
-        spent pinning.  On CUDA the host copies are pinned so the copies
-        are asynchronous; the caching host allocator keeps a pinned
-        block alive until its copy ends."""
-        w = torch.from_numpy(b.words.view(np.int32))
-        # int64, the index type of the step's index_fill_
-        e = torch.from_numpy(
-            pad_exceptions(b.exc, flat_size).astype(np.int64))
-        if self.device.type == "cuda":
-            t0 = _pc()
-            w = w.pin_memory()
-            pin = _pc() - t0
-            w = w.to(self.device, non_blocking=True)
-            t0 = _pc()
-            e = e.pin_memory()
-            pin += _pc() - t0
-            return w, e.to(self.device, non_blocking=True), pin
-        return w, e, 0.0
+        spent staging the exceptions.  With a ring, ``b.words`` is (this
+        rank's rows of) the slot that the feeder wrote; the exceptions go
+        into the same slot as int32, padded with the ring's ``trash``
+        (``flat_size``), and both are copied asynchronously into fresh
+        device tensors; the slot's fence keeps the producer from writing
+        it again before the copies end."""
+        if ring is None:
+            w = torch.from_numpy(b.words.view(np.int32))
+            # int64, the index type of the step's index_fill_
+            e = torch.from_numpy(
+                pad_exceptions(b.exc, flat_size).astype(np.int64))
+            return w, e, 0.0
+        t0 = _pc()
+        e = ring.exceptions(b.exc)
+        pin = _pc() - t0
+        # copy=True: a CPU rehearsal of the ring must not alias the slot
+        w = b.words.to(self.device, non_blocking=True, copy=True)
+        e = e.to(self.device, non_blocking=True, copy=True)
+        ring.sent()
+        return w, e, pin
 
     def _pinned_allocs(self) -> int | None:
         """Pinned blocks the caching host allocator has made so far in
@@ -577,8 +697,11 @@ class DeviceSketcher:
         halo = aligned_halo(p)
         payload = self.n_blocks * self.block
         flat_size = self.n_blocks * (self.block + halo)
+        allocs = self._pinned_allocs() or 0  # the ring's first blocks too
+        ring = self._staging_ring((self.block + halo) // 16 + 2, flat_size)
         feeder = WordTapeFeeder(genome_codes, self.mesh.size * self.n_blocks,
-                                self.block, halo)
+                                self.block, halo,
+                                rows_out=None if ring is None else ring.take)
         pos_chunks: list[np.ndarray] = []
         hash_chunks: list[np.ndarray] = []
         finalizer = GenomeFinalizer(feeder, p, self.least_num_kmer)
@@ -590,18 +713,22 @@ class DeviceSketcher:
         # overlap, so components sum to MORE than the wall unless one
         # role is the bottleneck.  Parts of one role: parse_wait of feed
         # (the producer blocked on the parser; sketch_files sets it) and
-        # pin of h2d_put.  consumer_cpu: the consumer thread's CPU
-        # seconds over its whole loop (dispatch, qwait and the flush
-        # hand-offs), read at the loop's ends only: a read a batch (a
-        # system call each) made dispatch 2.6x slower on an H100 host
-        # (PERF.md §6).  It does not tell the step's work from waits
-        # that cost CPU time.
+        # pin of h2d_put (on CUDA: the wait for a free ring slot, which
+        # the feeder takes and which moves from feed to h2d_put at the
+        # end, plus the exceptions' copy into the slot).  slot_waits:
+        # batches whose slot was still being copied from.  consumer_cpu:
+        # the consumer thread's CPU seconds over its whole loop
+        # (dispatch, qwait and the flush hand-offs), read at the loop's
+        # ends only: a read a batch (a system call each) made dispatch
+        # 2.6x slower on an H100 host (PERF.md §6).  It does not tell
+        # the step's work from waits that cost CPU time.
         B = {"feed": 0.0, "h2d_put": 0.0, "qwait": 0.0, "dispatch": 0.0,
              "flush_scalars": 0.0, "flush_collect": 0.0, "finalize": 0.0,
              "drain": 0.0, "wall": 0.0, "h2d_bytes": 0, "batches": 0,
              "reruns": 0, "exchange": 0.0, "parse_wait": 0.0, "pin": 0.0,
-             "pinned_allocs": 0, "consumer_cpu": 0.0}
-        allocs = self._pinned_allocs() or 0
+             "pinned_allocs": 0, "consumer_cpu": 0.0, "slot_waits": 0}
+        waits0, wait_s0 = (0, 0.0) if ring is None else (ring.waits,
+                                                         ring.wait_s)
         t_start = _pc()
 
         def collect(cur_bufs, cur_count, pending_batches):
@@ -660,7 +787,7 @@ class DeviceSketcher:
             B["finalize"] += _pc() - t0
 
         # producer thread: feed + pinned upload overlap device execution
-        q: queue.Queue = queue.Queue(maxsize=8)
+        q: queue.Queue = queue.Queue(maxsize=_QUEUE_DEPTH)
 
         def producer():
             try:
@@ -672,9 +799,11 @@ class DeviceSketcher:
                         B["feed"] += _pc() - t0
                         if batch is None:
                             break
+                        if ring is not None:  # the slot the feeder wrote
+                            batch.words = ring.slot.words
                         batch = self._local(batch)
                         t0 = _pc()
-                        dw, de, pin = self._upload(batch, flat_size)
+                        dw, de, pin = self._upload(batch, flat_size, ring)
                         B["h2d_put"] += _pc() - t0
                         B["pin"] += pin
                         B["h2d_bytes"] += batch.words.nbytes
@@ -721,6 +850,12 @@ class DeviceSketcher:
         if flusher.error is not None:
             raise flusher.error
         B["drain"] = _pc() - t_loop_end
+        if ring is not None:
+            waited = ring.wait_s - wait_s0
+            B["feed"] -= waited
+            B["h2d_put"] += waited
+            B["pin"] += waited
+            B["slot_waits"] = ring.waits - waits0
 
         self.last_peak_pending = finalizer.peak_pending
         t0 = _pc()

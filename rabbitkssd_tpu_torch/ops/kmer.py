@@ -80,15 +80,21 @@ def packed_to_words_np(packed2: np.ndarray) -> np.ndarray:
     return np.concatenate([w, pad], axis=-1)
 
 
+def exc_bucket(n: int, floor: int = 1024) -> int:
+    """The power-of-two length, at least ``floor``, that ``n`` exception
+    positions are padded to."""
+    cap = floor
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
 def pad_exceptions(exc: np.ndarray, flat_size: int, floor: int = 1024
                    ) -> np.ndarray:
     """Pad exception positions to a power-of-two bucket; pads carry
     ``flat_size`` (one past the last position: the stream step's trash
     slot)."""
-    cap = floor
-    while cap < len(exc):
-        cap <<= 1
-    out = np.full(cap, flat_size, np.int32)
+    out = np.full(exc_bucket(len(exc), floor), flat_size, np.int32)
     out[: len(exc)] = exc
     return out
 

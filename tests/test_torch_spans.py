@@ -29,7 +29,8 @@ OUTER = "computing sketches and save sketches into file"
 INNER = ("keep table build", "keep table upload", "stream pipeline",
          "save sketches")
 NEW = ("read shuffle file",) + INNER
-NEW_KEYS = ("parse_wait", "pin", "pinned_allocs", "consumer_cpu")
+NEW_KEYS = ("parse_wait", "pin", "pinned_allocs", "consumer_cpu",
+            "slot_waits")
 # a span's start is its printed end less its seconds: print latency
 SLACK = 0.05
 
@@ -61,8 +62,11 @@ def check_budget(b: dict, cuda: bool = False) -> None:
     assert 0 <= b["consumer_cpu"] <= 1.05 * (b["dispatch"] + b["qwait"]) \
         + 0.02
     assert isinstance(b["pinned_allocs"], int) and b["pinned_allocs"] >= 0
+    assert isinstance(b["slot_waits"], int)
+    assert 0 <= b["slot_waits"] <= b["batches"]
     if not cuda:
         assert b["pin"] == 0 and b["pinned_allocs"] == 0
+        assert b["slot_waits"] == 0
 
 
 def test_cli_sketch_spans_nest(cli_pass):
@@ -113,7 +117,7 @@ def test_first_sketch_of_a_process_pins_new_blocks(tmp_path):
     """A fresh process's first sketch on the card makes pinned blocks:
     the counter reads the allocator, not a missing key's 0."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: pin_memory pins nothing without one")
+        pytest.skip("needs a CUDA card: nothing is pinned without one")
     argv = _sketch_argv(str(tmp_path / "x.sketch"))
     argv[1] = "cuda"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
