@@ -197,6 +197,10 @@ class WordTapeFeeder:
         # chunked genome being ingested, pulled incrementally so batches
         # flow while a multi-GB genome is still being parsed
         self._exhausted = False
+        # the exceptions emitted (halo'd flat positions, before bucket
+        # padding) and the seconds spent taking and mapping them
+        self.exc_n = 0
+        self.exc_s = 0.0
 
     # -- ingest -------------------------------------------------------------
     def _push(self, words: np.ndarray, exc: np.ndarray, offset: int) -> None:
@@ -352,12 +356,16 @@ class WordTapeFeeder:
                 flat, shape=(self.n_blocks, WB + WH),
                 strides=(WB * flat.itemsize, flat.itemsize), writeable=False)
             tail = flat[WP:].copy()
+            t0 = _pc()
             exc_tape = np.concatenate([halo_exc, self._take_exc(base + P)])
             halo_exc = exc_tape[exc_tape >= base + P - self.halo]
+            exc = self._exc_to_flat(exc_tape, base)
+            self.exc_s += _pc() - t0
+            self.exc_n += len(exc)
             valid_upto = min(self._avail - base, P)
             yield _TapeBatch(
                 words=rows,
-                exc=self._exc_to_flat(exc_tape, base),
+                exc=exc,
                 base=base,
                 valid_upto=valid_upto,
                 end=base + valid_upto,
@@ -721,12 +729,17 @@ class DeviceSketcher:
         # (dispatch, qwait and the flush hand-offs), read at the loop's
         # ends only: a read a batch (a system call each) made dispatch
         # 2.6x slower on an H100 host (PERF.md §6).  It does not tell
-        # the step's work from waits that cost CPU time.
+        # the step's work from waits that cost CPU time.  exceptions:
+        # the invalid positions the feeder emitted, before bucket
+        # padding; exc_build, a part of feed: the feeder taking them
+        # and mapping them to flat coordinates; abundance, a part of
+        # finalize: the count and filter of -n > 1.
         B = {"feed": 0.0, "h2d_put": 0.0, "qwait": 0.0, "dispatch": 0.0,
              "flush_scalars": 0.0, "flush_collect": 0.0, "finalize": 0.0,
              "drain": 0.0, "wall": 0.0, "h2d_bytes": 0, "batches": 0,
              "reruns": 0, "exchange": 0.0, "parse_wait": 0.0, "pin": 0.0,
-             "pinned_allocs": 0, "consumer_cpu": 0.0, "slot_waits": 0}
+             "pinned_allocs": 0, "consumer_cpu": 0.0, "slot_waits": 0,
+             "exceptions": 0, "exc_build": 0.0, "abundance": 0.0}
         waits0, wait_s0 = (0, 0.0) if ring is None else (ring.waits,
                                                          ring.wait_s)
         t_start = _pc()
@@ -856,11 +869,14 @@ class DeviceSketcher:
             B["h2d_put"] += waited
             B["pin"] += waited
             B["slot_waits"] = ring.waits - waits0
+        B["exceptions"] = feeder.exc_n
+        B["exc_build"] = feeder.exc_s
 
         self.last_peak_pending = finalizer.peak_pending
         t0 = _pc()
         out = finalizer.finish()
         B["finalize"] += _pc() - t0
+        B["abundance"] = finalizer.abundance_s
         B["wall"] = _pc() - t_start
         n = self._pinned_allocs()
         B["pinned_allocs"] = None if n is None else n - allocs
@@ -980,6 +996,7 @@ class GenomeFinalizer:
         self._next = 0  # next genome index to finalize
         self.out: list[np.ndarray] = []
         self.peak_pending = 0  # max survivors ever held (for tests)
+        self.abundance_s = 0.0  # seconds in the count and filter of -n
 
     def _finalize_upto(self, g_hi: int) -> None:
         if g_hi <= self._next:
@@ -1003,8 +1020,10 @@ class GenomeFinalizer:
         for i in range(g_hi - self._next):
             h = hsorted[bounds[i]: bounds[i + 1]]
             if self.least > 1:
+                t0 = _pc()
                 vals, counts = np.unique(h, return_counts=True)
                 vals = vals[counts >= self.least]
+                self.abundance_s += _pc() - t0
             else:
                 vals = np.unique(h)
             self.out.append(vals.astype(self.dt))
