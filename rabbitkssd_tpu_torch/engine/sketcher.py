@@ -379,6 +379,13 @@ class WordTapeFeeder:
 # host threads (copied from the JAX package)
 # --------------------------------------------------------------------------
 
+# most threads the chunked reader takes (native.fasta_packed_chunks): on
+# an 8-core H100 host the mammal cell read the same at 4 and 5 and less
+# at 6, where the parse competes with the pipeline's threads (PERF.md);
+# more cores were not measured
+_SPLIT_THREADS = 5
+
+
 def _prefetch_chunks(gen, depth: int = 4, waited=None):
     """Run a chunk generator on its own thread, `depth` chunks ahead.
 
@@ -902,12 +909,45 @@ class DeviceSketcher:
         stream_threshold = int(
             os.environ.get("KSSD_STREAM_THRESHOLD", 1 << 30))
 
-        def parse(path: str):
-            if (load_native() is not None
-                    and os.stat(path).st_size > stream_threshold):
-                return _prefetch_chunks(
-                    fasta_packed_chunks(path, self.least_qual),
-                    waited=waited)
+        # the host's thread budget: every rank of a node parses the whole
+        # corpus, so a rank has its share of the cores
+        budget = self.threads or max(
+            1, (os.cpu_count() or 1) // local_world())
+        # the chunked reader's threads: the budget less a core each for
+        # the producer, consumer and flusher, at most _SPLIT_THREADS
+        split_threads = min(_SPLIT_THREADS, max(1, budget - 3))
+        streamed: list = []  # the chunked readers, for their counters
+        # one file streams at a time, on all of split_threads, in the
+        # producer's order: the k-th file that streams waits until the k
+        # before it have ended (their prefetch threads start in any order)
+        can_stream = load_native() is not None
+        turn = threading.Condition()
+        ended = [0]
+        placed = [0]
+
+        def place(path: str):
+            """The file's place in line among those that stream, or None."""
+            if not can_stream or os.stat(path).st_size <= stream_threshold:
+                return None
+            placed[0] += 1
+            return placed[0] - 1
+
+        def stream(path: str, k: int):
+            try:
+                with turn:
+                    turn.wait_for(lambda: ended[0] == k)
+                chunks = fasta_packed_chunks(path, self.least_qual,
+                                             threads=split_threads)
+                streamed.append(chunks)
+                yield from chunks
+            finally:
+                with turn:
+                    ended[0] += 1
+                    turn.notify_all()
+
+        def parse(path: str, k):
+            if k is not None:
+                return _prefetch_chunks(stream(path, k), waited=waited)
             pk = fasta_packed(path, self.least_qual)
             if pk is None:  # no native toolchain: python parser
                 recs = [(r.seq, r.qual) for r in read_records(path)]
@@ -928,23 +968,21 @@ class DeviceSketcher:
             return got
 
         def gen() -> Iterator:
-            # bounded parallel parse (the native parser releases the GIL);
-            # every rank of a node parses the whole corpus: share its cores
-            workers = self.threads or min(
-                8, max(1, (os.cpu_count() or 1) // local_world()))
+            # bounded parallel parse (the native parser releases the GIL)
+            workers = self.threads or min(8, budget)
             depth = 2 * workers
             with ThreadPoolExecutor(max_workers=workers) as ex:
                 futs: list = []
                 it = iter(files)
                 for path in it:
-                    futs.append(ex.submit(parse, path))
+                    futs.append(ex.submit(parse, path, place(path)))
                     if len(futs) >= depth:
                         break
                 ring = len(futs)
                 i = 0
                 for path in it:
                     yield result(futs[i % ring])
-                    futs[i % ring] = ex.submit(parse, path)
+                    futs[i % ring] = ex.submit(parse, path, place(path))
                     i += 1
                 for j in range(ring):
                     yield result(futs[(i + j) % ring])
@@ -960,6 +998,9 @@ class DeviceSketcher:
         with phase("stream pipeline"):
             hashes, n = self.sketch_codes(gen_progress())
         self.last_budget["parse_wait"] = round(parse_wait, 4)
+        # the chunked reader's bytes, and those whose split parse held
+        for key in ("stream_bytes", "split_bytes"):
+            self.last_budget[key] = sum(getattr(c, key, 0) for c in streamed)
         # one JSON line: where the pipeline's wall went, per thread role
         print(f"sketch budget: {json.dumps(self.last_budget)}",
               file=sys.stderr)

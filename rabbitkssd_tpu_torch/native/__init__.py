@@ -4,8 +4,8 @@ The reference's host-side hot paths are native C++ (RabbitFX chunked
 readers, robin_hood sets, glibc-rand shuffling).  The port keeps host
 streaming/bookkeeping native too: sources in ``src/`` are compiled on
 demand into a shared library loaded via ctypes (no pybind11).  Every
-entry point has a pure-Python fallback so the package works without a
-toolchain.
+entry point but the chunked reader has a pure-Python fallback so the
+package works without a toolchain.
 
 The port's copy of ``rabbitkssd_tpu/native``.  It builds into its own
 cache (``~/.cache/rabbitkssd_tpu_torch/native`` or
@@ -98,6 +98,21 @@ def load_native():
                 ct.POINTER(ct.POINTER(ct.c_uint32)), ct.POINTER(ct.c_int64),
                 ct.POINTER(ct.POINTER(ct.c_int32)), ct.POINTER(ct.c_int64),
             ]
+            _LIB.kssd_split_open.restype = ct.c_void_p
+            _LIB.kssd_split_open.argtypes = [ct.c_char_p, ct.c_int, ct.c_int,
+                                             ct.c_int64]
+            _LIB.kssd_split_next.restype = ct.c_int64
+            _LIB.kssd_split_next.argtypes = [
+                ct.c_void_p, ct.c_int64, ct.POINTER(ct.c_uint32),
+                ct.POINTER(ct.c_int64),
+            ]
+            _LIB.kssd_split_exc.restype = None
+            _LIB.kssd_split_exc.argtypes = [ct.c_void_p, ct.POINTER(ct.c_int32)]
+            _LIB.kssd_split_stats.restype = None
+            _LIB.kssd_split_stats.argtypes = [
+                ct.c_void_p, ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64)]
+            _LIB.kssd_split_close.restype = None
+            _LIB.kssd_split_close.argtypes = [ct.c_void_p]
             _LIB.kssd_pair_count.restype = None
             _LIB.kssd_pair_count.argtypes = [
                 ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int64),
@@ -626,100 +641,95 @@ def pack_codes_native(codes):
     return words, _take_i32(lib, ep, ne.value)
 
 
+# bytes a thread parses a block (T ranges make a block, after which the
+# threads wait for each other): tens of MB, so a 1.2 GB file is a few
+# dozen blocks, and a block's chunks outlast the next block's parse
+_SPLIT_RANGE = 16 << 20
+
+
+class PackedChunks:
+    """Iterator of (words u32, n_bases, exc i32) chunks of one file, read
+    by ``native/src/fasta_split.cpp`` on ``threads`` threads,
+    ``range_bytes`` a thread a block; the chunks are those of the
+    sequential chunked reader (``kssd_fasta_read_codes`` +
+    ``kssd_pack_codes``, which the JAX package keeps).
+
+    ``stream_bytes``: the bytes parsed; ``split_bytes``: those whose
+    speculative parse of a byte range held.  The file is opened on the
+    first ``next()`` and closed at its end or by ``close()``."""
+
+    def __init__(self, path: str, least_qual: int, chunk: int,
+                 threads: int, range_bytes: int = _SPLIT_RANGE):
+        self._h = None
+        self._done = False
+        if chunk % 16:
+            raise ValueError(f"chunk {chunk} is not a multiple of 16")
+        self._lib = load_native()
+        if self._lib is None:
+            raise RuntimeError("native toolchain unavailable")
+        self._path = path
+        self._args = (int(least_qual), int(threads), int(range_bytes))
+        self._chunk = chunk
+        self.stream_bytes = 0
+        self.split_bytes = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import ctypes as ct
+
+        import numpy as np
+
+        if self._done:
+            raise StopIteration
+        lib = self._lib
+        if self._h is None:
+            self._h = lib.kssd_split_open(self._path.encode(), *self._args)
+            if not self._h:
+                self._done = True
+                raise IOError(f"cannot open {self._path}")
+        words = np.empty(self._chunk // 16, np.uint32)
+        n_exc = ct.c_int64()
+        n = lib.kssd_split_next(
+            self._h, ct.c_int64(self._chunk),
+            words.ctypes.data_as(ct.POINTER(ct.c_uint32)), ct.byref(n_exc))
+        if n <= 0:
+            self.close()
+            if n < 0:
+                raise IOError(f"native split reader failed on {self._path}")
+            raise StopIteration
+        exc = np.empty(n_exc.value, np.int32)
+        lib.kssd_split_exc(self._h, exc.ctypes.data_as(ct.POINTER(ct.c_int32)))
+        return words[:(n + 15) // 16], int(n), exc
+
+    def close(self) -> None:
+        self._done = True
+        if self._h is None:
+            return
+        got, held = ctypes.c_int64(), ctypes.c_int64()
+        self._lib.kssd_split_stats(self._h, ctypes.byref(got),
+                                   ctypes.byref(held))
+        self.stream_bytes, self.split_bytes = got.value, held.value
+        self._lib.kssd_split_close(self._h)
+        self._h = None
+
+    def __del__(self):
+        self.close()
+
+
 def fasta_packed_chunks(path: str, least_qual: int = 0,
-                        chunk: int = 1 << 24):
-    """Generator of (words u32, n_bases, exc i32) chunks for one file.
+                        chunk: int = 1 << 24, threads: int = 1):
+    """Iterator of (words u32, n_bases, exc i32) chunks for one file.
 
     Bounded memory for multi-GB inputs; every chunk except the last
     holds exactly ``chunk`` bases (a multiple of 16, so chunks
-    concatenate word-aligned).  Raises if the toolchain is unavailable.
+    concatenate word-aligned).  The file is parsed on ``threads``
+    threads, in byte ranges cut at line ends (``PackedChunks``); the
+    caller owns the thread budget.  Raises if the toolchain is
+    unavailable.
     """
-    assert chunk % 16 == 0
-    import ctypes as ct
-
-    import numpy as np
-
-    lib = load_native()
-    if lib is None:
-        raise RuntimeError("native toolchain unavailable")
-    _bind_stream(lib)
-    h = lib.kssd_fasta_open(path.encode(), int(least_qual))
-    if not h:
-        raise IOError(f"cannot open {path}")
-    try:
-        while True:
-            buf = np.empty(chunk, np.int8)
-            n = lib.kssd_fasta_read_codes(
-                h, buf.ctypes.data_as(ct.POINTER(ct.c_int8)),
-                ct.c_int64(chunk),
-            )
-            if n < 0:
-                raise IOError(f"native stream reader failed on {path}")
-            if n == 0:
-                return
-            words = np.empty((n + 15) // 16, np.uint32)
-            ep = ct.POINTER(ct.c_int32)()
-            ne = ct.c_int64()
-            rc = lib.kssd_pack_codes(
-                buf.ctypes.data_as(ct.POINTER(ct.c_int8)), ct.c_int64(n),
-                words.ctypes.data_as(ct.POINTER(ct.c_uint32)),
-                ct.byref(ep), ct.byref(ne),
-            )
-            if rc != 0:
-                raise MemoryError("native pack failed")
-            yield words, int(n), _take_i32(lib, ep, ne.value)
-    finally:
-        lib.kssd_fasta_close(h)
-
-
-def _bind_stream(lib):
-    import ctypes as ct
-
-    if getattr(lib, "_stream_bound", False):
-        return
-    lib.kssd_fasta_open.restype = ct.c_void_p
-    lib.kssd_fasta_open.argtypes = [ct.c_char_p, ct.c_int]
-    lib.kssd_fasta_read_codes.restype = ct.c_int64
-    lib.kssd_fasta_read_codes.argtypes = [
-        ct.c_void_p, ct.POINTER(ct.c_int8), ct.c_int64,
-    ]
-    lib.kssd_fasta_close.argtypes = [ct.c_void_p]
-    lib._stream_bound = True
-
-
-def fasta_codes_chunks(path: str, least_qual: int = 0,
-                       chunk: int = 1 << 24):
-    """Generator of int8 code-tape chunks for one file (streaming).
-
-    Bounded memory for multi-GB inputs; concatenation of the chunks
-    equals ``fasta_codes(path, least_qual)``.  Yields nothing if the
-    native toolchain is unavailable (caller falls back).
-    """
-    import ctypes as ct
-
-    import numpy as np
-
-    lib = load_native()
-    if lib is None:
-        raise RuntimeError("native toolchain unavailable")
-    _bind_stream(lib)
-    h = lib.kssd_fasta_open(path.encode(), int(least_qual))
-    if not h:
-        raise IOError(f"cannot open {path}")
-    try:
-        while True:
-            buf = np.empty(chunk, np.int8)
-            n = lib.kssd_fasta_read_codes(
-                h, buf.ctypes.data_as(ct.POINTER(ct.c_int8)),
-                ct.c_int64(chunk),
-            )
-            if n < 0:
-                raise IOError(f"native stream reader failed on {path}")
-            if n == 0:
-                return
-            yield buf[:n]
-    finally:
-        lib.kssd_fasta_close(h)
+    return PackedChunks(path, least_qual, chunk, threads)
 
 
 def fasta_codes(path: str, least_qual: int = 0):

@@ -432,12 +432,15 @@ def trial_rng(seed: int, t: int):
 
 @contextlib.contextmanager
 def _chunked_port_reader(chunk: int):
-    """Make the port's chunked reader cut files into ``chunk`` bases."""
+    """Make the port's chunked reader cut files into ``chunk`` bases, and
+    parse them in byte ranges of ``chunk + 1`` bytes, so that a file
+    spans many ranges."""
     from rabbitkssd_tpu_torch import native
 
     whole = native.fasta_packed_chunks
     native.fasta_packed_chunks = (
-        lambda path, least_qual=0: whole(path, least_qual, chunk=chunk))
+        lambda path, least_qual=0, threads=1: native.PackedChunks(
+            path, least_qual, chunk, threads, range_bytes=chunk + 1))
     try:
         yield
     finally:

@@ -49,10 +49,11 @@ def test_config4_port_cli_equals_jax_cli(tmp_path, monkeypatch):
     assert native.load_native() is not None  # else no chunked reader
 
     chunks = []
-    whole = native.fasta_packed_chunks
 
-    def small_chunks(path, least_qual=0):
-        for c in whole(path, least_qual, chunk=1 << 16):
+    # 2^16-base chunks, parsed in 64 KiB byte ranges: many a file
+    def small_chunks(path, least_qual=0, threads=1):
+        for c in native.PackedChunks(path, least_qual, 1 << 16, threads,
+                                     range_bytes=1 << 16):
             chunks.append(path)
             yield c
 
