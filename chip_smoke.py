@@ -149,9 +149,8 @@ Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Catches nothing: any failure exits
 non-zero.  Without a CUDA card, or outside the repository, it exits 1
 before printing a result.  Imports only the port (``rabbitkssd_tpu_torch``),
-which carries its own copies of the host modules it needs (its ``host``
-module gathers the helpers this script uses) and imports nothing of the
-JAX package.
+which carries its own copies of the host modules it needs and imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -462,19 +461,20 @@ def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
     include the host's issue of each call."""
     import torch
 
-    from rabbitkssd_tpu_torch.host import generate_shuffle
     from rabbitkssd_tpu_torch.ops.member import (keep_tables, member,
                                                  member_plain)
+    from rabbitkssd_tpu_torch.shuffle import generate_shuffle
 
     shuf = generate_shuffle(half_k, half_subk, drlevel)
     dim_size = shuf.dim_size
     dim_end = 1 << (4 * (half_subk - drlevel))
-    _, bitmap = keep_tables(shuf.shuffled_dim, dim_end, device)
+    tables = keep_tables(shuf.shuffled_dim, dim_end, device)
+    bitmap = tables.bitmap
     rng = np.random.default_rng(seed)
     d = rng.integers(0, dim_size, size=STEP_DIMS + 5).astype(np.int32)
     d[:5] = [-2, -1, dim_size, dim_size - 1, 2**31 - 1]
     dims = torch.from_numpy(d).to(device)
-    got = member(dims, bitmap, dim_size)
+    got = member(dims, tables)
     want = member_plain(dims, bitmap, dim_size)
     table = shuf.shuffled_dim
     inside = (d >= 0) & (d < dim_size)
@@ -492,7 +492,7 @@ def kernel_vs_plain(device, half_k: int, half_subk: int, drlevel: int,
     _require(torch.equal(lut[inside_dims], want[5:]), "kept_lut[d] != plain")
 
     def kern():
-        member(dims, bitmap, dim_size)
+        member(dims, tables)
 
     def plain():
         member_plain(dims, bitmap, dim_size)
@@ -561,20 +561,21 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
     import torch
 
     from rabbitkssd_tpu_torch.engine.sketcher import DeviceSketcher
-    from rabbitkssd_tpu_torch.host import KssdParams, generate_shuffle
-    from rabbitkssd_tpu_torch.ops.member import (bitmap_summary,
-                                                 keep_tables, member)
-    from rabbitkssd_tpu_torch.ops.stream import (compact_append,
+    from rabbitkssd_tpu_torch.ops.member import keep_tables, member
+    from rabbitkssd_tpu_torch.ops.stream import (LookbackScratch,
+                                                 compact_append,
                                                  compact_append_plain,
                                                  compact_tile_words,
                                                  keep_words,
                                                  keep_words_plain,
                                                  pack_bits, unpack_bits)
+    from rabbitkssd_tpu_torch.params import KssdParams
+    from rabbitkssd_tpu_torch.shuffle import generate_shuffle
 
     params = KssdParams(half_k, half_subk, drlevel)
     shuf = generate_shuffle(half_k, half_subk, drlevel)
     sk = DeviceSketcher(params, shuf.shuffled_dim, device)
-    table, bitmap = sk.tables
+    tables = sk.tables
     step = sk.step
     h, halo, cap, buf_cap = step.hasher, step.halo, sk.cap, sk.buf_cap
     on_card = device.type == "cuda"
@@ -592,6 +593,8 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
     # stream_compact's tile (keep words); the plain version has none
     tile = compact_tile_words() if on_card else 1024
     out = {"cap": cap, "buf_cap": buf_cap, "tile_words": tile, "cases": []}
+    # every stream_compact launch below is on this thread and stream
+    scratch = LookbackScratch(device)
 
     def compare(kw, words, tab, c, bc, c0, mode, what):
         """compact_append against its plain version from zeroed buffers;
@@ -603,7 +606,8 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
             cnt, ofl = fn(kw, words, tab, bufs,
                           torch.tensor(c0, dtype=torch.int32, device=device),
                           torch.zeros((), dtype=torch.bool, device=device),
-                          3, h, halo, c, bc, mode)
+                          3, h, halo, c, bc, mode,
+                          *((scratch,) if fn is compact_append else ()))
             k = int(cnt)
             res.append((k, bool(ofl), [b[:k].cpu() for b in bufs]))
         (kc, ko, kb), (pc, po, pb) = res
@@ -624,10 +628,11 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         upto = n - 12345 if nb > 1 else n - 123  # a tape tail
         g_cap = (min(n // 32, max(4096, 4 * (n >> 4 * drlevel) // 32))
                  if drlevel >= 3 and n % 32 == 0 else None)
-        for kept, (tab, bm) in (("shuffled", (table, bitmap)),
-                                ("dense", dense)):
-            kw = keep_words(words, valid, upto, h, halo, bm)
-            kw_plain = keep_words_plain(words, valid, upto, h, halo, bm)
+        for kept, kt in (("shuffled", tables), ("dense", dense)):
+            tab = kt.table
+            kw = keep_words(words, valid, upto, h, halo, kt)
+            kw_plain = keep_words_plain(words, valid, upto, h, halo,
+                                        kt.bitmap)
             _require(torch.equal(kw, kw_plain), f"stream_keep != plain "
                      f"({nb} x {block}, {kept} kept set)")
             survivors = int(unpack_bits(kw, n).sum())
@@ -652,7 +657,7 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
                         "count": kc, "overflow": ko})
             variants[(nb, block, kept)] = (kw, words, tab, g_cap)
 
-    # back-to-back launches on one stream, so on one look-back scratch:
+    # back-to-back launches on one look-back scratch:
     # grids of 64, 64 and 1 tiles in turn, sparse and dense; every
     # launch's count and overflow, and the last one's buffers, against
     # the plain version
@@ -671,7 +676,7 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
             kw, words, tab, bufs,
             torch.tensor(777, dtype=torch.int32, device=device),
             torch.zeros((), dtype=torch.bool, device=device), 3, h, halo,
-            cap, buf_cap, mode))
+            cap, buf_cap, mode, scratch))
     got = [(int(c), bool(o)) for c, o in got]
     _require(got == [want[i % 3] for i in range(launches)],
              "back-to-back stream_compact launches != plain")
@@ -703,22 +708,22 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
                  for _ in range(4))
     count = torch.zeros((), dtype=torch.int32, device=device)
     oflow = torch.zeros((), dtype=torch.bool, device=device)
-    kw = keep_words(words, valid, n, h, halo, bitmap)
+    kw = keep_words(words, valid, n, h, halo, tables)
     survivors = int(unpack_bits(kw, n).sum())
 
     def keep_k():
-        keep_words(words, valid, n, h, halo, bitmap)
+        keep_words(words, valid, n, h, halo, tables)
 
     def keep_p():
-        keep_words_plain(words, valid, n, h, halo, bitmap)
+        keep_words_plain(words, valid, n, h, halo, tables.bitmap)
 
     def comp_k():
-        compact_append(kw, words, table, bufs, count, oflow, 0, h, halo,
-                       cap, buf_cap, g_cap)
+        compact_append(kw, words, tables.table, bufs, count, oflow, 0, h,
+                       halo, cap, buf_cap, g_cap, scratch)
 
     def comp_p():
-        compact_append_plain(kw, words, table, bufs, count, oflow, 0, h,
-                             halo, cap, buf_cap, g_cap)
+        compact_append_plain(kw, words, tables.table, bufs, count, oflow, 0,
+                             h, halo, cap, buf_cap, g_cap)
 
     def step_new():
         step(words, exc, sk.tables, bufs, count, oflow, 0, n)
@@ -734,15 +739,14 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
         # packed and this version's plain compaction, whose unpacking
         # and per-survivor window gathers it did not run (it compacted
         # the bool mask and gathered codes hashed for every window).
-        # scripts/torch_ab_sketch.py runs the earlier step itself.
         v = torch.ones(valid.numel(), dtype=torch.bool, device=device)
         v.index_fill_(0, exc, False)
         v = v[: nb * L].view(nb, L) & (coord < n)
         _, _, dim_id, ok = h.windows(words, v)
-        hit = member(dim_id, bitmap, h.dimsize_mask + 1)
+        hit = member(dim_id, tables)
         k = pack_bits((ok & hit)[:, halo:].reshape(-1))
-        compact_append_plain(k, words, table, bufs, count, oflow, 0, h,
-                             halo, cap, buf_cap, g_cap)
+        compact_append_plain(k, words, tables.table, bufs, count, oflow, 0,
+                             h, halo, cap, buf_cap, g_cap)
 
     # "ms": device time a call from a torch.profiler trace (the kernel's
     # own entries, or the step's busy time); events time a call, in
@@ -776,10 +780,9 @@ def stream_kernels_vs_plain(device, half_k: int, half_subk: int,
     G = kw.numel()
     # stream_keep: words, valid mask, bitmap and its summary in, keep
     # words out
-    summary, _ = bitmap_summary(bitmap, params.dim_size)
     times["stream_keep"]["bound_ms"], times["stream_keep"]["bound_by"] = \
-        _bound(words.numel() * 4 + nb * (nw - 2) * 16 + bitmap.numel() * 4
-               + summary.numel() * 4
+        _bound(words.numel() * 4 + nb * (nw - 2) * 16
+               + tables.bitmap.numel() * 4 + tables.summary.numel() * 4
                + G * 4, KEEP_OPS_PER_WINDOW * n)
     # stream_compact: keep words in; a survivor's three words and table
     # entry in, four slots out (this batch's survivors, up to cap)
@@ -819,7 +822,7 @@ def _sorted_rows(path: str) -> list[str]:
 
 
 def _sets(path: str) -> dict:
-    from rabbitkssd_tpu_torch.host import read_sketches
+    from rabbitkssd_tpu_torch.formats import read_sketches
 
     return {s.name: np.sort(s.hashes) for s in read_sketches(path).sketches}
 
@@ -882,9 +885,11 @@ def main_path(device, work: str, n_genomes: int, genome_len: int
     """Phase 4 + 5a/5b: corpus -> CLI sketch -> CLI alldist, then the
     oracle and device-counting checks.  Returns (the numbers to print,
     the paths and sets later phases reuse)."""
-    from rabbitkssd_tpu_torch.host import (KssdParams, generate_shuffle,
-                                           oracle_hashes_numpy,
-                                           read_records, write_shuffle_file)
+    from rabbitkssd_tpu_torch.oracle import oracle_hashes_numpy
+    from rabbitkssd_tpu_torch.params import KssdParams
+    from rabbitkssd_tpu_torch.seqio import read_records
+    from rabbitkssd_tpu_torch.shuffle import (generate_shuffle,
+                                              write_shuffle_file)
 
     t0 = time.perf_counter()
     list_path, files, total = make_corpus(os.path.join(work, "corpus"),
@@ -943,7 +948,7 @@ def forced_overflow(device, ctx: dict) -> dict:
     the hash sets must equal the main path's."""
     from rabbitkssd_tpu_torch.engine.sketcher import (DeviceSketcher,
                                                       StreamStep)
-    from rabbitkssd_tpu_torch.host import KssdParams
+    from rabbitkssd_tpu_torch.params import KssdParams
 
     params = KssdParams(10, 6, 3)
     sk = DeviceSketcher(params, ctx["shuf"].shuffled_dim, device)
@@ -974,7 +979,7 @@ def walk_rate(ctx: dict, copies: int = 1, reps: int = 20) -> dict:
     join size over the median wall of ``reps`` walks.  ``copies`` > 1
     repeats every sketch, for a join ``copies**2`` times larger."""
     from rabbitkssd_tpu_torch.engine.dist_engine import _CsrIndex
-    from rabbitkssd_tpu_torch.host import read_sketches
+    from rabbitkssd_tpu_torch.formats import read_sketches
 
     hashes = [s.hashes for s in read_sketches(ctx["sketch"]).sketches]
     hashes = hashes * copies
@@ -1208,7 +1213,7 @@ def legacy(device, work: str, ctx: dict, c2: dict, reps: int = 10) -> dict:
     their counts against the walk's, and their files against a CPU run."""
     import torch
 
-    from rabbitkssd_tpu_torch.host import read_sketches
+    from rabbitkssd_tpu_torch.formats import read_sketches
     from rabbitkssd_tpu_torch.ops.intersect import (_ordered_int64,
                                                     _pair_common,
                                                     common_counts_sorted,
@@ -1337,7 +1342,7 @@ def rank_mesh(spec: dict, root: str) -> dict:
 
     from rabbitkssd_tpu_torch import resolve_device
     from rabbitkssd_tpu_torch.engine.sketcher import sketch_file_list
-    from rabbitkssd_tpu_torch.host import read_shuffle_file
+    from rabbitkssd_tpu_torch.shuffle import read_shuffle_file
     from rabbitkssd_tpu_torch.parallel.multihost import init_multihost, rank
     from rabbitkssd_tpu_torch.parallel.sharded import (Mesh,
                                                        sharded_common_counts)
@@ -1473,7 +1478,7 @@ def ranks_mesh(device, work: str, ctx: dict) -> dict:
 
 
 def _sketch_hashes(path: str) -> list[np.ndarray]:
-    from rabbitkssd_tpu_torch.host import read_sketches
+    from rabbitkssd_tpu_torch.formats import read_sketches
 
     return [s.hashes for s in read_sketches(path).sketches]
 
@@ -1493,7 +1498,7 @@ def child_main(spec_path: str) -> None:
     import torch
 
     sys.path.insert(0, HERE)
-    from rabbitkssd_tpu_torch.host import load_native
+    from rabbitkssd_tpu_torch.native import load_native
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -1583,10 +1588,12 @@ def config4(device, work: str, genome_len: int = 1_200_000_000,
     lowers all three with ``genome_len``."""
     import torch
 
-    from rabbitkssd_tpu_torch.host import (KssdParams, generate_shuffle,
-                                           oracle_hashes_numpy,
-                                           read_records, read_sketches,
-                                           write_shuffle_file)
+    from rabbitkssd_tpu_torch.formats import read_sketches
+    from rabbitkssd_tpu_torch.oracle import oracle_hashes_numpy
+    from rabbitkssd_tpu_torch.params import KssdParams
+    from rabbitkssd_tpu_torch.seqio import read_records
+    from rabbitkssd_tpu_torch.shuffle import (generate_shuffle,
+                                              write_shuffle_file)
     from rabbitkssd_tpu_torch.ops.kmer import combine_hash_words, pack_blocks
     from rabbitkssd_tpu_torch.parallel.sharded import (
         Mesh, make_sharded_sketch_step)
@@ -1812,7 +1819,7 @@ def config3(device, work: str, ctx: dict) -> dict:
     numpy set algebra over phase 4's sets and to phase 4's rows.  A is
     the larger half so that the merged sketch keeps phase 4's genome
     order (the largest first), which fixes each row's orientation."""
-    from rabbitkssd_tpu_torch.host import read_sketches
+    from rabbitkssd_tpu_torch.formats import read_sketches
 
     root = os.path.join(work, "config3")
     os.makedirs(root)
@@ -1954,7 +1961,7 @@ def main() -> None:
              "rabbitkssd_tpu_torch/csrc/*.cu)")
     sys.path.insert(0, HERE)
     import rabbitkssd_tpu_torch
-    from rabbitkssd_tpu_torch.host import load_native
+    from rabbitkssd_tpu_torch.native import load_native
     from rabbitkssd_tpu_torch.ops._build import load_cuda_libs
 
     if not os.path.abspath(rabbitkssd_tpu_torch.__file__).startswith(HERE):

@@ -11,6 +11,4 @@ engine.setops, utils.stdheap, the CLI parser and host-only commands)
 are copies under the same module names.
 """
 
-__version__ = "0.1.0"
-
 from .device import resolve_device  # noqa: F401

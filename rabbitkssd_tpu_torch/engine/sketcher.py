@@ -27,6 +27,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import queue
@@ -42,9 +43,9 @@ import torch
 from ..device import resolve_device
 from ..formats import Sketch, SketchInfo, SketchSet
 from ..ops.kmer import StreamHasher, encode_concat, exc_bucket, \
-    pack_words_np, pad_exceptions
-from ..ops.member import keep_tables
-from ..ops.stream import compact_append, keep_words
+    pack_words_np
+from ..ops.member import KeepTables, keep_tables
+from ..ops.stream import LookbackScratch, compact_append, keep_words
 from ..parallel.multihost import local_world, rank
 from ..parallel.sharded import Mesh, allgather_columns, any_rank, make_mesh
 from ..params import KssdParams
@@ -76,7 +77,7 @@ class StreamStep:
     * words int32[nb, nw]: the feeder's u32 word rows viewed as int32;
     * exc int32 or int64[cap_exc]: invalid positions in halo'd-row flat
       coords, padded with nb*L (the trash slot);
-    * tables: (table int32[dim_size], bitmap) from ``keep_tables``;
+    * tables: the :class:`KeepTables` from ``keep_tables``;
     * bufs: (lo, hi, pos, batch) int32[buf_cap] carry buffers, written
       in place from min(count, buf_cap - cap) on;
     * count: int32 device scalar write offset; overflow: bool device
@@ -87,6 +88,9 @@ class StreamStep:
     Four device operations a batch: the valid mask (two torch ops),
     :func:`keep_words` (window hash + keep test, one kernel) and
     :func:`compact_append` (compaction + compose + append, one kernel).
+    The step's look-back scratch is made at its first call, on that
+    call's device: a step serves one thread, whose launches go to one
+    stream.
     """
 
     def __init__(self, params: KssdParams, cap: int, buf_cap: int,
@@ -97,11 +101,13 @@ class StreamStep:
         self.compaction = compaction
         self.hasher = StreamHasher(params)
         self.halo = aligned_halo(params)
+        self.scratch = None
 
-    def __call__(self, words, exc, tables, bufs, count, overflow,
-                 batch_idx: int, valid_upto: int):
+    def __call__(self, words, exc, tables: KeepTables, bufs, count,
+                 overflow, batch_idx: int, valid_upto: int):
         p, halo = self.params, self.halo
-        table, bitmap = tables
+        if self.scratch is None:
+            self.scratch = LookbackScratch(words.device)
         nb, nw = words.shape
         L = 16 * (nw - 2)
         n = nb * (L - halo)
@@ -109,16 +115,16 @@ class StreamStep:
         # kernel argument (an indexed assignment would copy it from host)
         valid = torch.ones(nb * L + 1, dtype=torch.bool, device=words.device)
         valid.index_fill_(0, exc.long(), False)
-        keep = keep_words(words, valid, valid_upto, self.hasher, halo, bitmap)
+        keep = keep_words(words, valid, valid_upto, self.hasher, halo, tables)
         # survivors are a ~16^-drlevel fraction: at high reduction only
         # the 32-window groups holding any survivor are compacted
         g_cap = None
         if self.compaction == "auto" and p.drlevel >= 3 and n % 32 == 0:
             g_cap = min(n // 32,
                         max(4096, 4 * (n >> (4 * p.drlevel)) // 32))
-        return compact_append(keep, words, table, bufs, count, overflow,
-                              batch_idx, self.hasher, halo, self.cap,
-                              self.buf_cap, g_cap)
+        return compact_append(keep, words, tables.table, bufs, count,
+                              overflow, batch_idx, self.hasher, halo,
+                              self.cap, self.buf_cap, g_cap, self.scratch)
 
 
 # --------------------------------------------------------------------------
@@ -127,9 +133,9 @@ class StreamStep:
 
 @dataclasses.dataclass
 class _TapeBatch:
-    # words and exc become their device tensors once uploaded (int32
-    # view of the words; exc padded by pad_exceptions); on CUDA words is
-    # first the page-locked slot that the feeder wrote
+    # words and exc become their device tensors once uploaded (exc
+    # padded to its bucket); before that, words is the staging ring's
+    # slot that the feeder wrote
     words: np.ndarray  # uint32[n_blocks, (block + halo)/16 + 2]
     exc: np.ndarray  # int32[k] invalid positions, halo'd-row flat coords
     base: int  # tape offset of this batch's first payload position
@@ -474,7 +480,7 @@ class _AsyncFlusher:
 
 
 # --------------------------------------------------------------------------
-# page-locked staging (CUDA)
+# staging: page-locked on CUDA
 # --------------------------------------------------------------------------
 
 # batches the producer may run ahead of the consumer
@@ -491,9 +497,23 @@ class _Slot:
     n_exc: int = 0  # exceptions the slot's last batch wrote
 
 
+class _Done:
+    """The fence of a ring off CUDA, where a copy has ended when it
+    returns."""
+
+    def record(self) -> None:
+        pass
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+
 class _StagingRing:
-    """Page-locked host slots that the producer assembles batches into,
-    and uploads from, once each.
+    """Host slots that the producer assembles batches into, and uploads
+    from, once each: page-locked, with CUDA events as fences, on CUDA.
 
     :meth:`take` (the feeder's ``rows_out``) moves to the next slot and,
     if that slot's last copies have not ended, waits on its fence
@@ -501,9 +521,9 @@ class _StagingRing:
     :meth:`exceptions` writes a batch's exceptions into the slot, padded
     with ``trash`` (the step's trash slot) to their bucket, growing the
     slot's region to a larger bucket; :meth:`sent` fences the copies
-    just issued from the slot.  ``pin=False`` and a ``fence`` class with
-    ``record``, ``query`` and ``synchronize`` let the CPU run the same
-    rotation."""
+    just issued from the slot.  Off CUDA the slots are not pinned
+    (``pin=False``) and ``fence`` is :class:`_Done`, or any class with
+    ``record``, ``query`` and ``synchronize``."""
 
     def __init__(self, depth: int, n_rows: int, nw_row: int, trash: int,
                  pin: bool = True, fence=None):
@@ -616,7 +636,6 @@ class DeviceSketcher:
         self.step = StreamStep(params, self.cap, self.buf_cap)
         self.last_budget = None
         self.last_peak_pending = 0
-        self._ring = None  # made at the first sketch on CUDA
 
     def _fresh_buffers(self, buf_cap: int):
         dev = self.device
@@ -625,37 +644,28 @@ class DeviceSketcher:
         return (bufs, torch.zeros((), dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.bool, device=dev))
 
-    def _staging_ring(self, nw_row: int, flat_size: int
-                      ) -> _StagingRing | None:
-        """The page-locked ring on CUDA, made once per sketcher; None
-        off CUDA, where batches go up from the feeder's own arrays."""
-        if self.device.type != "cuda":
-            return None
-        if self._ring is None:
-            self._ring = _StagingRing(_QUEUE_DEPTH + 2,
-                                      self.mesh.size * self.n_blocks, nw_row,
-                                      flat_size)
-        return self._ring
+    @functools.cached_property
+    def _staging_ring(self) -> _StagingRing:
+        """The staging ring, made at the first sketch and kept: page-locked
+        on CUDA, unpinned elsewhere."""
+        row = self.block + aligned_halo(self.params)
+        cuda = self.device.type == "cuda"
+        return _StagingRing(_QUEUE_DEPTH + 2, self.mesh.size * self.n_blocks,
+                            row // 16 + 2, self.n_blocks * row, pin=cuda,
+                            fence=None if cuda else _Done)
 
-    def _upload(self, b: _TapeBatch, flat_size: int,
-                ring: _StagingRing | None = None):
+    def _upload(self, b: _TapeBatch, ring: _StagingRing):
         """Host batch -> (words, exc) device tensors and the seconds
-        spent staging the exceptions.  With a ring, ``b.words`` is (this
-        rank's rows of) the slot that the feeder wrote; the exceptions go
-        into the same slot as int32, padded with the ring's ``trash``
-        (``flat_size``), and both are copied asynchronously into fresh
+        spent staging the exceptions.  ``b.words`` is (this rank's rows
+        of) the slot that the feeder wrote; the exceptions go into the
+        same slot as int32, padded with the ring's ``trash`` (the flat
+        batch size), and both are copied asynchronously into fresh
         device tensors; the slot's fence keeps the producer from writing
         it again before the copies end."""
-        if ring is None:
-            w = torch.from_numpy(b.words.view(np.int32))
-            # int64, the index type of the step's index_fill_
-            e = torch.from_numpy(
-                pad_exceptions(b.exc, flat_size).astype(np.int64))
-            return w, e, 0.0
         t0 = _pc()
         e = ring.exceptions(b.exc)
         pin = _pc() - t0
-        # copy=True: a CPU rehearsal of the ring must not alias the slot
+        # copy=True: off CUDA, too, the batch must not alias the slot
         w = b.words.to(self.device, non_blocking=True, copy=True)
         e = e.to(self.device, non_blocking=True, copy=True)
         ring.sent()
@@ -711,12 +721,10 @@ class DeviceSketcher:
         p = self.params
         halo = aligned_halo(p)
         payload = self.n_blocks * self.block
-        flat_size = self.n_blocks * (self.block + halo)
         allocs = self._pinned_allocs() or 0  # the ring's first blocks too
-        ring = self._staging_ring((self.block + halo) // 16 + 2, flat_size)
+        ring = self._staging_ring
         feeder = WordTapeFeeder(genome_codes, self.mesh.size * self.n_blocks,
-                                self.block, halo,
-                                rows_out=None if ring is None else ring.take)
+                                self.block, halo, rows_out=ring.take)
         pos_chunks: list[np.ndarray] = []
         hash_chunks: list[np.ndarray] = []
         finalizer = GenomeFinalizer(feeder, p, self.least_num_kmer)
@@ -728,9 +736,9 @@ class DeviceSketcher:
         # overlap, so components sum to MORE than the wall unless one
         # role is the bottleneck.  Parts of one role: parse_wait of feed
         # (the producer blocked on the parser; sketch_files sets it) and
-        # pin of h2d_put (on CUDA: the wait for a free ring slot, which
-        # the feeder takes and which moves from feed to h2d_put at the
-        # end, plus the exceptions' copy into the slot).  slot_waits:
+        # pin of h2d_put (the wait for a free ring slot, which the
+        # feeder takes and which moves from feed to h2d_put at the end,
+        # plus the exceptions' copy into the slot).  slot_waits:
         # batches whose slot was still being copied from.  consumer_cpu:
         # the consumer thread's CPU seconds over its whole loop
         # (dispatch, qwait and the flush hand-offs), read at the loop's
@@ -747,8 +755,7 @@ class DeviceSketcher:
              "reruns": 0, "exchange": 0.0, "parse_wait": 0.0, "pin": 0.0,
              "pinned_allocs": 0, "consumer_cpu": 0.0, "slot_waits": 0,
              "exceptions": 0, "exc_build": 0.0, "abundance": 0.0}
-        waits0, wait_s0 = (0, 0.0) if ring is None else (ring.waits,
-                                                         ring.wait_s)
+        waits0, wait_s0 = ring.waits, ring.wait_s
         t_start = _pc()
 
         def collect(cur_bufs, cur_count, pending_batches):
@@ -819,11 +826,10 @@ class DeviceSketcher:
                         B["feed"] += _pc() - t0
                         if batch is None:
                             break
-                        if ring is not None:  # the slot the feeder wrote
-                            batch.words = ring.slot.words
+                        batch.words = ring.slot.words  # the feeder wrote it
                         batch = self._local(batch)
                         t0 = _pc()
-                        dw, de, pin = self._upload(batch, flat_size, ring)
+                        dw, de, pin = self._upload(batch, ring)
                         B["h2d_put"] += _pc() - t0
                         B["pin"] += pin
                         B["h2d_bytes"] += batch.words.nbytes
@@ -870,12 +876,11 @@ class DeviceSketcher:
         if flusher.error is not None:
             raise flusher.error
         B["drain"] = _pc() - t_loop_end
-        if ring is not None:
-            waited = ring.wait_s - wait_s0
-            B["feed"] -= waited
-            B["h2d_put"] += waited
-            B["pin"] += waited
-            B["slot_waits"] = ring.waits - waits0
+        waited = ring.wait_s - wait_s0
+        B["feed"] -= waited
+        B["h2d_put"] += waited
+        B["pin"] += waited
+        B["slot_waits"] = ring.waits - waits0
         B["exceptions"] = feeder.exc_n
         B["exc_build"] = feeder.exc_s
 

@@ -5,8 +5,8 @@ Port of ``rabbitkssd_tpu/ops/pallas_member.py`` (the Pallas
 is carried as a bitmap of ``dim_size`` bits in int32 words (bit d of
 word d >> 5); :func:`member` looks each dim_id up in it.  On a CUDA
 tensor it launches the hand-written kernel in ``csrc/member.cu``, which
-tests the bitmap's :func:`bitmap_summary` in shared memory before it
-reads the bitmap; on a CPU tensor it runs :func:`member_plain`, the
+tests the bitmap's :func:`summary_np` in shared memory before it reads
+the bitmap; on a CPU tensor it runs :func:`member_plain`, the
 same lookup as torch ops.  The sketch stream step does not call it:
 ``ops/stream.py`` fuses the same lookup (``csrc/member.cuh``, and the
 same summary) into the window hash.
@@ -15,7 +15,7 @@ same summary) into the window hash.
 from __future__ import annotations
 
 import ctypes
-import weakref
+import dataclasses
 
 import numpy as np
 import torch
@@ -56,43 +56,41 @@ def summary_np(bm: np.ndarray, dim_size: int) -> tuple[np.ndarray, int]:
                           ), shift
 
 
-# summaries by bitmap tensor: id -> (data pointer, version, dim_size,
-# summary tensor, shift); an entry goes with its bitmap
-_SUMMARIES: dict[int, tuple] = {}
+@dataclasses.dataclass(frozen=True, eq=False)
+class KeepTables:
+    """The keep test's state on one device, made by :func:`keep_tables`.
 
+    ``table`` int32[dim_size] gives survivors their permuted rank;
+    ``bitmap`` int32[ceil(dim_size/32)] is the kept set; ``summary`` and
+    ``shift`` its :func:`summary_np`, which the kernels test in shared
+    memory before they probe the bitmap."""
 
-def _register(bitmap: torch.Tensor, dim_size: int, summary: torch.Tensor,
-              shift: int) -> None:
-    key = id(bitmap)
-    if key not in _SUMMARIES:
-        weakref.finalize(bitmap, _SUMMARIES.pop, key, None)
-    _SUMMARIES[key] = (bitmap.data_ptr(), bitmap._version, dim_size,
-                       summary, shift)
+    table: torch.Tensor
+    bitmap: torch.Tensor
+    summary: torch.Tensor
+    shift: int
+    dim_size: int
 
-
-def bitmap_summary(bitmap: torch.Tensor, dim_size: int
-                   ) -> tuple[torch.Tensor, int]:
-    """(summary, shift) of a bitmap on its device (:func:`summary_np`):
-    the one :func:`keep_tables` uploaded with it, else made from a host
-    copy at first use and kept while the bitmap lives unchanged."""
-    entry = _SUMMARIES.get(id(bitmap))
-    if entry is None or entry[:3] != (bitmap.data_ptr(), bitmap._version,
-                                      dim_size):
-        summary, shift = summary_np(bitmap.cpu().numpy(), dim_size)
-        _register(bitmap, dim_size,
-                  torch.from_numpy(summary).to(bitmap.device), shift)
-        entry = _SUMMARIES[id(bitmap)]
-    return entry[3], entry[4]
+    def __post_init__(self):
+        # the kernels take these tensors' pointers
+        parts = (self.table, self.bitmap, self.summary)
+        if not all(t.dtype == torch.int32 and t.is_contiguous()
+                   and t.device == self.table.device for t in parts):
+            raise ValueError("KeepTables: contiguous int32 tensors on one "
+                             "device")
+        if (self.table.numel() != self.dim_size
+                or self.bitmap.numel() * _BITS < self.dim_size):
+            raise ValueError(f"KeepTables: a table of {self.table.numel()} "
+                             f"and a bitmap of {self.bitmap.numel()} words "
+                             f"for dim_size {self.dim_size}")
 
 
 def keep_tables(shuffled_dim: np.ndarray, dim_end: int, device
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The keep test's state from a shuffle permutation: (table
-    int32[dim_size], bitmap int32[dim_size/32]) on ``device``.  The
-    table gives survivors their permuted rank; the bitmap is the kept
-    set.  The bitmap's :func:`bitmap_summary` goes up in the same copy
-    (the bitmap is a view of the first words, the summary of the last,
-    from a 16-byte boundary on)."""
+                ) -> KeepTables:
+    """The keep test's state from a shuffle permutation, on ``device``.
+    The bitmap and its summary go up in one copy (the bitmap is a view
+    of the first words, the summary of the last, from a 16-byte boundary
+    on), the table in another."""
     with phase("keep table build"):
         t = np.ascontiguousarray(shuffled_dim, dtype=np.int32)
         bm = bitmap_np((t >= 0) & (t < dim_end))
@@ -103,9 +101,8 @@ def keep_tables(shuffled_dim: np.ndarray, dim_end: int, device
     with phase("keep table upload"):
         both = torch.from_numpy(both).to(device)
         table = torch.from_numpy(t).to(device)
-    bitmap = both[: bm.size]
-    _register(bitmap, t.size, both[bm.size + gap.size:], shift)
-    return table, bitmap
+    return KeepTables(table, both[: bm.size], both[bm.size + gap.size:],
+                      shift, t.size)
 
 
 def bitmap_from_lane_table(lane_tab: np.ndarray, dim_size: int
@@ -130,16 +127,16 @@ def member_plain(dims: torch.Tensor, bitmap: torch.Tensor, dim_size: int
     return inside & (((word >> (dc & 31)) & 1) != 0)
 
 
-def member(dims: torch.Tensor, bitmap: torch.Tensor, dim_size: int
-           ) -> torch.Tensor:
-    """Keep test.  CUDA tensors launch ``kssd_member_bitmap`` (counted in
-    ``member.launches``; with the bitmap's :func:`bitmap_summary`, made
-    once a bitmap) or raise; CPU tensors run :func:`member_plain`.
+def member(dims: torch.Tensor, tables: KeepTables) -> torch.Tensor:
+    """Keep test of ``dims`` against the kept set of ``tables``
+    (:func:`keep_tables`, on the dims' device).  CUDA tensors launch
+    ``kssd_member_bitmap`` (counted in ``member.launches``) or raise;
+    CPU tensors run :func:`member_plain`.
 
-    ``dims``: int32, contiguous, any offset; ``bitmap``: int32/uint32
-    words covering ``dim_size`` bits, on the same device.  Returns bool
-    of dims' shape (no launch for no dims).
+    ``dims``: int32, contiguous, any offset.  Returns bool of dims'
+    shape (no launch for no dims).
     """
+    bitmap, dim_size = tables.bitmap, tables.dim_size
     if dims.device.type == "cpu":
         if bitmap.device.type != "cpu":
             raise ValueError("dims on cpu but bitmap on " + str(bitmap.device))
@@ -151,25 +148,21 @@ def member(dims: torch.Tensor, bitmap: torch.Tensor, dim_size: int
                          f"{dims.device}")
     if dims.dtype != torch.int32:
         raise TypeError(f"member: dims must be int32, got {dims.dtype}")
-    if bitmap.dtype not in (torch.int32, torch.uint32):
-        raise TypeError(f"member: bitmap must be int32/uint32, got "
-                        f"{bitmap.dtype}")
-    if not (dims.is_contiguous() and bitmap.is_contiguous()):
-        raise ValueError("member: dims and bitmap must be contiguous")
-    if not 0 < dim_size <= bitmap.numel() * _BITS or dim_size >= 1 << 31:
-        raise ValueError(f"member: bitmap of {bitmap.numel()} words cannot "
-                         f"cover dim_size {dim_size}")
+    if not dims.is_contiguous():
+        raise ValueError("member: dims must be contiguous")
+    if not 0 < dim_size < 1 << 31:
+        raise ValueError(f"member: dim_size {dim_size} outside int32")
     out = torch.empty(dims.shape, dtype=torch.bool, device=dims.device)
     if out.numel() == 0:
         return out
     lib = _lib()
     with torch.cuda.device(dims.device):
-        summary, shift = bitmap_summary(bitmap, dim_size)
         stream = torch.cuda.current_stream(dims.device).cuda_stream
         rc = lib.kssd_member_bitmap(dims.data_ptr(), dims.numel(),
                                     bitmap.data_ptr(), dim_size,
-                                    summary.data_ptr(), summary.numel(),
-                                    shift, out.data_ptr(), stream)
+                                    tables.summary.data_ptr(),
+                                    tables.summary.numel(), tables.shift,
+                                    out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"kssd_member_bitmap launch failed: CUDA error "
                            f"{rc}")

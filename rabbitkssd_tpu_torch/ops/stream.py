@@ -13,13 +13,12 @@ or raises, and runs its plain PyTorch version (``*_plain``, the JAX
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from ._build import load_cuda_lib
 from .kmer import M32, StreamHasher
-from .member import bitmap_summary, member_plain
+from .member import KeepTables, member_plain
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -73,53 +72,50 @@ def keep_words_plain(words: torch.Tensor, valid: torch.Tensor,
 
 
 def keep_words(words: torch.Tensor, valid: torch.Tensor, valid_upto: int,
-               hasher: StreamHasher, halo: int, bitmap: torch.Tensor
+               hasher: StreamHasher, halo: int, tables: KeepTables
                ) -> torch.Tensor:
     """Keep bits of every payload window of a batch, 32 to a word.
 
     ``words`` int32[nb, nw] word rows; ``valid`` bool[>= nb*L], the
     row-major validity of each row position (L = 16*(nw-2)); payload
-    coordinates >= ``valid_upto`` are invalid; ``bitmap`` the kept set
-    (``keep_tables``).  Returns int32[ceil(nb*block/32)] over the
+    coordinates >= ``valid_upto`` are invalid; ``tables`` the kept set
+    (:func:`keep_tables`).  Returns int32[ceil(nb*block/32)] over the
     flattened payload (block = L - halo).  CUDA tensors launch
-    ``kssd_stream_keep`` (with the bitmap's :func:`bitmap_summary`, made
-    once a bitmap) or raise; CPU tensors run :func:`keep_words_plain`.
+    ``kssd_stream_keep`` (with the bitmap's summary) or raise; CPU
+    tensors run :func:`keep_words_plain`.
     """
     dev = words.device
-    if dev.type == "cpu":
-        if valid.device != dev or bitmap.device != dev:
-            raise ValueError("keep_words: words on cpu, valid/bitmap not")
-        return keep_words_plain(words, valid, valid_upto, hasher, halo,
-                                bitmap)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"keep_words: unsupported device {dev}")
-    nb, L, block, G = _geometry(words, halo)
-    dim_size = hasher.dimsize_mask + 1
+    bitmap = tables.bitmap
     if valid.device != dev or bitmap.device != dev:
         raise ValueError(f"keep_words: valid on {valid.device}, bitmap on "
                          f"{bitmap.device}, words on {dev}")
-    if (words.dtype != torch.int32 or valid.dtype != torch.bool
-            or bitmap.dtype != torch.int32):
-        raise TypeError("keep_words: words and bitmap int32, valid bool")
-    if not (words.is_contiguous() and valid.is_contiguous()
-            and bitmap.is_contiguous()):
+    if tables.dim_size != hasher.dimsize_mask + 1:
+        raise ValueError(f"keep_words: kept set of {tables.dim_size} dims, "
+                         f"hasher of {hasher.dimsize_mask + 1}")
+    if dev.type == "cpu":
+        return keep_words_plain(words, valid, valid_upto, hasher, halo,
+                                bitmap)
+    nb, L, block, G = _geometry(words, halo)
+    if words.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise TypeError("keep_words: words int32, valid bool")
+    if not (words.is_contiguous() and valid.is_contiguous()):
         raise ValueError("keep_words: inputs must be contiguous")
     if valid.data_ptr() % 16:
         raise ValueError("keep_words: valid must be 16-byte aligned (the "
                          "kernel loads it 16 bytes at a time)")
     if (valid.numel() < nb * L or not 0 < nb < 1 << 16 or block <= 0
-            or halo < hasher.K - 1 or bitmap.numel() * 32 < dim_size
-            or dim_size >= 1 << 31):
+            or halo < hasher.K - 1 or tables.dim_size >= 1 << 31):
         raise ValueError("keep_words: bad shapes")
     out = torch.empty(G, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        summary, shift = bitmap_summary(bitmap, dim_size)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _keep_lib().kssd_stream_keep(
             words.data_ptr(), nb, words.shape[1], valid.data_ptr(), halo,
             int(valid_upto), hasher.K, hasher.hoc2, bitmap.data_ptr(),
-            dim_size, summary.data_ptr(), summary.numel(), shift,
-            out.data_ptr(), G, stream)
+            tables.dim_size, tables.summary.data_ptr(),
+            tables.summary.numel(), tables.shift, out.data_ptr(), G, stream)
     if rc != 0:
         raise RuntimeError(f"kssd_stream_keep launch failed: CUDA error {rc}")
     keep_words.launches += 1
@@ -220,7 +216,8 @@ def compact_append(keep: torch.Tensor, words: torch.Tensor,
                    table: torch.Tensor, bufs, count: torch.Tensor,
                    overflow: torch.Tensor, batch_idx: int,
                    hasher: StreamHasher, halo: int, cap: int, buf_cap: int,
-                   g_cap: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+                   g_cap: int | None, scratch: LookbackScratch
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Append a batch's survivors to the carry buffers.
 
     ``keep`` int32[G] from :func:`keep_words`; ``words`` its word rows;
@@ -231,8 +228,8 @@ def compact_append(keep: torch.Tensor, words: torch.Tensor,
     for dense.  Returns (new count, new overflow) device scalars.  CUDA
     tensors launch ``kssd_stream_compact`` (one pass over tiles of
     :func:`compact_tile_words` keep words, prefixes by look-back through
-    the stream's :class:`LookbackScratch`) or raise; CPU tensors run
-    :func:`compact_append_plain`.
+    ``scratch``, the caller's :class:`LookbackScratch` on this device) or
+    raise; CPU tensors run :func:`compact_append_plain`.
     """
     dev = keep.device
     args = (keep, words, table, bufs, count, overflow)
@@ -263,14 +260,9 @@ def compact_append(keep: torch.Tensor, words: torch.Tensor,
     new_overflow = torch.empty((), dtype=torch.bool, device=dev)
     lib = _compact_lib()
     tiles = -(-G // lib.tile_words)
-    with _SCRATCH_LOCK, torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (dev.index if dev.index is not None
-               else torch.cuda.current_device(), stream)
-        scratch = _SCRATCH.get(key)
-        if scratch is None:
-            scratch = _SCRATCH[key] = LookbackScratch(dev)
+    with torch.cuda.device(dev):
         buf, epoch = scratch.take(tiles)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.kssd_stream_compact(
             keep.data_ptr(), G, g_cap is not None, g_cap or 0,
             words.data_ptr(), words.shape[1], halo, hasher.K, hasher.hoc2,
@@ -299,11 +291,13 @@ def scratch_words(tiles: int) -> int:
 
 
 class LookbackScratch:
-    """``stream_compact``'s look-back state on one (device, stream).
+    """``stream_compact``'s look-back state on one device.
 
-    Made zeroed (flags of epoch 0, which no launch uses) and grown to
-    the largest tile count seen; each launch takes the next epoch, so
-    no launch clears it.  When the epoch would reach ``epoch_limit``
+    One scratch serves the launches of one thread on one stream, which
+    run in order; a launch elsewhere needs a scratch of its own.  Made
+    zeroed (flags of epoch 0, which no launch uses) and grown to the
+    largest tile count seen; each launch takes the next epoch, so no
+    launch clears it.  When the epoch would reach ``epoch_limit``
     the state is zeroed once and the epochs start again at 1: a stale
     flag never carries the current epoch.
     """
@@ -327,12 +321,6 @@ class LookbackScratch:
             self.buf.zero_()
             self.epoch = 1
         return self.buf, self.epoch
-
-
-# one scratch per (device index, stream handle): launches on one stream
-# run in order, so they may share it
-_SCRATCH: dict[tuple[int, int], LookbackScratch] = {}
-_SCRATCH_LOCK = threading.Lock()
 
 
 def compact_tile_words() -> int:

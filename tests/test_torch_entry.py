@@ -38,8 +38,7 @@ def test_entry_matches_jax_and_repeats():
     # the same inputs: word rows, exception list, table, valid_upto
     np.testing.assert_array_equal(args[0].numpy().view(np.uint32), jargs[0])
     np.testing.assert_array_equal(args[1].numpy(), jargs[1])
-    table, _ = args[2]
-    np.testing.assert_array_equal(table.numpy(), jargs[2][0])
+    np.testing.assert_array_equal(args[2].table.numpy(), jargs[2][0])
     assert (args[9], args[10]) == (int(jargs[9]), int(jargs[10]))
 
     first = fn(*args)

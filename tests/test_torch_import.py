@@ -14,7 +14,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "rabbitkssd_tpu_torch",
     "rabbitkssd_tpu_torch.device",
-    "rabbitkssd_tpu_torch.host",
     "rabbitkssd_tpu_torch.cli",
     "rabbitkssd_tpu_torch.entry",
     "rabbitkssd_tpu_torch.params",

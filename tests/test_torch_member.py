@@ -36,16 +36,17 @@ def test_member_matches_lane_kernel(dim_size, dim_end, n):
     want = np.asarray(member_lane(dims, lt, interpret=True))
     np.testing.assert_array_equal(want, table[dims] < dim_end)
 
-    t, bitmap = keep_tables(table, dim_end, "cpu")
-    assert torch.equal(t, torch.from_numpy(table))
+    tables = keep_tables(table, dim_end, "cpu")
+    assert torch.equal(tables.table, torch.from_numpy(table))
+    assert tables.dim_size == dim_size
     view = torch.from_numpy(base).view(-1)[o:]
     assert view.storage_offset() == o and view.is_contiguous()
-    got = member(view, bitmap, dim_size)
+    got = member(view, tables)
     assert got.dtype == torch.bool and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), want)
     # the JAX package's lane table carries the same kept set
     np.testing.assert_array_equal(bitmap_from_lane_table(lt, dim_size),
-                                  bitmap.numpy())
+                                  tables.bitmap.numpy())
 
 
 @pytest.mark.parametrize("dim_size,dim_end", [(1 << 12, 600),
@@ -55,10 +56,10 @@ def test_member_out_of_range_dims(dim_size, dim_end):
     pads and any stray value)."""
     rng = np.random.default_rng(7)
     table = rng.permutation(dim_size).astype(np.int32)
-    _, bitmap = keep_tables(table, dim_end, "cpu")
+    tables = keep_tables(table, dim_end, "cpu")
     edge = np.array([-2, -1, dim_size, dim_size + 5, 2**31 - 1, 0,
                      dim_size - 1, -(2**31)], np.int32)
-    got = member(torch.from_numpy(edge).view(2, 4), bitmap, dim_size)
+    got = member(torch.from_numpy(edge).view(2, 4), tables)
     assert got.shape == (2, 4)
     want = np.zeros(edge.size, bool)
     want[5] = table[0] < dim_end
@@ -87,7 +88,8 @@ def test_member_kernel_matches_plain_on_card(cfg):
     dim_size = params.dim_size
     rng = np.random.default_rng(11 + cfg[0])
     table = rng.permutation(dim_size).astype(np.int32)
-    _, bitmap = keep_tables(table, params.dim_end, "cuda")
+    tables = keep_tables(table, params.dim_end, "cuda")
+    bitmap = tables.bitmap
     edge = [-(2**31), -1, dim_size, 2**31 - 1, 0, dim_size - 1]
     base = rng.integers(-4, dim_size + 4, size=CARD_SIZES[-1] + 3
                         ).astype(np.int32)
@@ -97,7 +99,7 @@ def test_member_kernel_matches_plain_on_card(cfg):
         for o in range(4):
             dims = whole.view(-1)[o: o + n]
             before = member.launches
-            got = member(dims, bitmap, dim_size)
+            got = member(dims, tables)
             torch.cuda.synchronize()
             assert member.launches == before + 1
             want = member_plain(dims, bitmap, dim_size)
@@ -109,7 +111,7 @@ def test_member_kernel_matches_plain_on_card(cfg):
     dims = whole[: 16 * ((1 << 17) + 32)].view(16, -1)
     want = member_plain(dims, bitmap, dim_size)
     before = member.launches
-    outs = [member(dims, bitmap, dim_size) for _ in range(100)]
+    outs = [member(dims, tables) for _ in range(100)]
     torch.cuda.synchronize()
     assert member.launches == before + 100
     assert all(torch.equal(g, want) for g in outs)

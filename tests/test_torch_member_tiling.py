@@ -31,8 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from rabbitkssd_tpu_torch.ops.member import (bitmap_summary, keep_tables,
-                                             member_plain)
+from rabbitkssd_tpu_torch.ops.member import keep_tables, member_plain
 from rabbitkssd_tpu_torch.params import KssdParams
 
 torch.set_num_threads(1)
@@ -77,8 +76,8 @@ def _kept(cfg: str):
         params = KssdParams(*KEPT_SETS[cfg])
         rng = np.random.default_rng(len(_KEPT) + 40)
         table = rng.permutation(params.dim_size).astype(np.int32)
-        _, bitmap = keep_tables(table, params.dim_end, "cpu")
-        summary, shift = bitmap_summary(bitmap, params.dim_size)
+        tables = keep_tables(table, params.dim_end, "cpu")
+        bitmap, summary, shift = tables.bitmap, tables.summary, tables.shift
         base = rng.integers(-3, params.dim_size + 3,
                             size=STEP_DIMS + 3).astype(np.int32)
         base[[0, 7, 100, 4000]] = [-(2**31), 2**31 - 1, params.dim_size, -1]

@@ -25,7 +25,7 @@ from kssd_bench.reference import sketchfile
 from kssd_bench.traffic import fastq_reads
 from rabbitkssd_tpu_torch import cli
 from rabbitkssd_tpu_torch.engine.sketcher import DeviceSketcher, \
-    WordTapeFeeder, _StagingRing
+    WordTapeFeeder, _StagingRing, aligned_halo
 from rabbitkssd_tpu_torch.params import KssdParams
 from rabbitkssd_tpu_torch.shuffle import read_shuffle_file
 from rabbitkssd_tpu_torch.seqio import read_list
@@ -132,23 +132,18 @@ def test_a_small_block_carries_many_exceptions_through_the_ring(reads):
     sk = DeviceSketcher(params, shuf.shuffled_dim, device="cpu",
                         n_blocks=4, block=1 << 15, least_qual=53,
                         least_num_kmer=2)
-    made = []
-
-    def ring(nw_row, flat_size):
-        if not made:
-            made.append(_StagingRing(3, 4, nw_row, flat_size, pin=False,
-                                     fence=Fence))
-        return made[0]
-
-    sk._staging_ring = ring
+    # 3 slots whose fences lag, in place of the sketcher's own ring
+    row = sk.block + aligned_halo(params)
+    ring = sk._staging_ring = _StagingRing(3, 4, row // 16 + 2, 4 * row,
+                                           pin=False, fence=Fence)
     got = sk.sketch_files(read_list(reads["paths"]["list"]))
     files, want = _reference(reads["paths"]["list"], 53, 2)
     _assert_sets([s.name for s in got.sketches],
                  [s.hashes for s in got.sketches], files, want)
     b = sk.last_budget
-    assert b["batches"] > len(made[0].slots)
+    assert b["batches"] > len(ring.slots)
     assert b["exceptions"] > 4096 * b["batches"]
-    assert all(len(s.exc) == 8192 for s in made[0].slots)
+    assert all(len(s.exc) == 8192 for s in ring.slots)
     assert b["abundance"] > 0
 
 

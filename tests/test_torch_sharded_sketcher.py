@@ -93,11 +93,11 @@ def test_sharded_sketcher_3_ranks(tmp_path, case):
         assert "exchange" in b
         # each rank uploads its third of every batch's words
         assert b["h2d_bytes"] == budgets[0]["h2d_bytes"]
-        # the roles' parts: fed codes, no parser waited on; no pinning
-        # on the CPU; the consumer's CPU time over its loop of
-        # dispatches and waits
+        # the roles' parts: fed codes, no parser waited on; staging in
+        # an unpinned ring on the CPU; the consumer's CPU time over its
+        # loop of dispatches and waits
         assert b["parse_wait"] == 0 <= b["feed"]
-        assert b["pin"] == 0 == b["pinned_allocs"]
+        assert 0 <= b["pin"] <= b["h2d_put"] and b["pinned_allocs"] == 0
         assert 0 <= b["consumer_cpu"] <= \
             1.05 * (b["dispatch"] + b["qwait"]) + 0.02
         if cap is not None:

@@ -65,7 +65,9 @@ def check_budget(b: dict, cuda: bool = False) -> None:
     assert isinstance(b["slot_waits"], int)
     assert 0 <= b["slot_waits"] <= b["batches"]
     if not cuda:
-        assert b["pin"] == 0 and b["pinned_allocs"] == 0
+        # the CPU stages through an unpinned ring whose copies have
+        # ended when they return
+        assert 0 <= b["pin"] <= b["h2d_put"] and b["pinned_allocs"] == 0
         assert b["slot_waits"] == 0
 
 

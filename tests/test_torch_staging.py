@@ -1,11 +1,12 @@
-"""Page-locked staging of sketch batches (``engine/sketcher.py``).
+"""Staging of sketch batches (``engine/sketcher.py``).
 
 The feeder writes each batch's rows into a destination it is given (a
-slot of :class:`_StagingRing` on CUDA), and the ring hands a slot out
-again only once the copies from it have ended.  The CPU tests run the
-ring's rotation with a fake fence and unpinned slots; the ``cuda`` test
-runs the real ring on the card (``python -m pytest
-tests/test_torch_staging.py -m cuda``).  Nothing here imports JAX.
+slot of :class:`_StagingRing`, page-locked on CUDA), and the ring hands
+a slot out again only once the copies from it have ended.  The CPU
+tests run the ring with unpinned slots, with its own fence or a fake
+one that lags; the ``cuda`` test runs the real ring on the card
+(``python -m pytest tests/test_torch_staging.py -m cuda``).  Nothing
+here imports JAX.
 """
 
 import glob
@@ -20,8 +21,10 @@ from rabbitkssd_tpu_torch.engine import sketcher
 from rabbitkssd_tpu_torch.engine.sketcher import (DeviceSketcher,
                                                   StreamStep,
                                                   WordTapeFeeder,
-                                                  _StagingRing, _TapeBatch)
+                                                  _StagingRing, _TapeBatch,
+                                                  aligned_halo)
 from rabbitkssd_tpu_torch.ops.kmer import encode_concat, pad_exceptions
+from rabbitkssd_tpu_torch.oracle import sketch_records_oracle
 from rabbitkssd_tpu_torch.parallel.sharded import Mesh
 from rabbitkssd_tpu_torch.params import KssdParams
 from rabbitkssd_tpu_torch.seqio import read_records
@@ -216,7 +219,10 @@ def _corpus():
     return out
 
 
-def _sketch(device, genomes, cap=None, ring=None):
+def _sketch(device, genomes, cap=None, fence=None):
+    """(sets, budget, ring) of a sketcher of 2 x BLOCK batches at
+    (8, 4, 1); with a ``fence`` class, its ring is one of 3 unpinned
+    slots with that fence."""
     params = KssdParams(8, 4, 1)
     shuf = generate_shuffle(8, 4, 1)
     sk = DeviceSketcher(params, shuf.shuffled_dim, device=device,
@@ -224,11 +230,22 @@ def _sketch(device, genomes, cap=None, ring=None):
     if cap is not None:
         sk.cap = cap
         sk.step = StreamStep(params, cap, sk.buf_cap)
-    if ring is not None:
-        sk._staging_ring = ring
+    if fence is not None:
+        row = BLOCK + aligned_halo(params)
+        sk._staging_ring = _StagingRing(3, 2, row // 16 + 2, 2 * row,
+                                        pin=False, fence=fence)
     got, n = sk.sketch_codes(iter([g.copy() for g in genomes]))
     assert n == len(genomes)
-    return got, sk.last_budget
+    return got, sk.last_budget, sk._staging_ring
+
+
+def _oracle(genomes):
+    """The numpy oracle's sets of the code arrays (-1 read as N)."""
+    shuf = generate_shuffle(8, 4, 1)
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    return [sketch_records_oracle(
+        [(acgtn[np.where(g < 0, 4, g)].tobytes(), None)],
+        KssdParams(8, 4, 1), shuf.shuffled_dim) for g in genomes]
 
 
 def _assert_equal(got, want):
@@ -239,30 +256,43 @@ def _assert_equal(got, want):
 
 @pytest.mark.parametrize("cap", [None, 64], ids=["fits", "overflows"])
 def test_sketch_through_a_ring_equals_the_plain_path(cap):
-    """The producer's ring path on the CPU: more batches than slots,
+    """A 3-slot ring whose fences lag, against the CPU sketcher's own
+    ring and both against the numpy oracle: more batches than slots,
     every reuse waits on a pending fence, one batch grows its slot's
     exceptions, and an overflowing window re-runs from the pending
     batches' own tensors after their slots were written again."""
     genomes = _corpus()
-    want, plain = _sketch("cpu", genomes)
-    made = []
-
-    def ring(nw_row, flat_size):
-        if not made:
-            made.append(_StagingRing(3, 2, nw_row, flat_size, pin=False,
-                                     fence=Fence))
-        return made[0]
-
-    got, b = _sketch("cpu", genomes, cap=cap, ring=ring)
+    want, plain, _ = _sketch("cpu", genomes)
+    _assert_equal(want, _oracle(genomes))
+    got, b, ring = _sketch("cpu", genomes, cap=cap, fence=Fence)
     _assert_equal(got, want)
-    assert b["batches"] == plain["batches"] > 3 * len(made[0].slots)
+    assert b["batches"] == plain["batches"] > 3 * len(ring.slots)
     assert b["slot_waits"] == b["batches"] - 3
     assert plain["slot_waits"] == 0
     assert 0 <= b["pin"] <= b["h2d_put"] and b["feed"] >= 0
-    regions = sorted(len(s.exc) for s in made[0].slots)
+    regions = sorted(len(s.exc) for s in ring.slots)
     assert regions[0] == 4096 and regions[-1] == 8192
     if cap is not None:
         assert b["reruns"] == b["batches"]
+
+
+def test_a_cpu_sketcher_stages_through_its_own_ring():
+    """With nothing injected, a CPU sketcher stages every batch through
+    its ring of unpinned slots, whose fence never waits, and its sets
+    equal the oracle's."""
+    genomes = _corpus()
+    got, b, ring = _sketch("cpu", genomes)
+    _assert_equal(got, _oracle(genomes))
+    assert isinstance(ring, _StagingRing)
+    assert not any(s.words.is_pinned() or s.exc.is_pinned()
+                   for s in ring.slots)
+    # every batch took the next slot; none waited
+    assert b["batches"] > len(ring.slots)
+    assert ring._i == (b["batches"] - 1) % len(ring.slots)
+    assert ring.waits == b["slot_waits"] == 0
+    # the batch inside a run of N grew its slot's exceptions
+    assert max(len(s.exc) for s in ring.slots) == 8192
+    assert 0 <= b["pin"] <= b["h2d_put"] and b["pinned_allocs"] == 0
 
 
 @pytest.mark.cuda
@@ -276,9 +306,9 @@ def test_the_card_ring_equals_the_cpu_path(tmp_path):
     from rabbitkssd_tpu_torch import cli
 
     genomes = _corpus()
-    want, plain = _sketch("cpu", genomes)
+    want, plain, _ = _sketch("cpu", genomes)
     for cap in (None, 64):
-        got, b = _sketch("cuda", genomes, cap=cap)
+        got, b, _ = _sketch("cuda", genomes, cap=cap)
         _assert_equal(got, want)
         assert b["batches"] == plain["batches"] > sketcher._QUEUE_DEPTH + 2
         assert b["reruns"] == (0 if cap is None else b["batches"])

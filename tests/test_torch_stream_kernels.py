@@ -28,7 +28,8 @@ from rabbitkssd_tpu_torch.engine.sketcher import aligned_halo
 from rabbitkssd_tpu_torch.ops.kmer import (StreamHasher, pack_words_np,
                                            pad_exceptions)
 from rabbitkssd_tpu_torch.ops.member import keep_tables
-from rabbitkssd_tpu_torch.ops.stream import (compact_append,
+from rabbitkssd_tpu_torch.ops.stream import (LookbackScratch,
+                                             compact_append,
                                              compact_append_plain,
                                              keep_words, keep_words_plain,
                                              pack_bits, unpack_bits)
@@ -94,10 +95,10 @@ def test_keep_words_match_jax(cfg, nb, block):
     words, exc, table = _batch(params, nb, block, seed=block + cfg[0])
     valid_upto = nb * block - 300  # mask the tape tail of the last row
     want = _jax_keep(params, words, exc, table, valid_upto)
-    _, bitmap = keep_tables(table, params.dim_end, "cpu")
     got = keep_words(torch.from_numpy(words.view(np.int32)),
                      _valid(words, exc), valid_upto, StreamHasher(params),
-                     aligned_halo(params), bitmap)
+                     aligned_halo(params),
+                     keep_tables(table, params.dim_end, "cpu"))
     assert got.dtype == torch.int32 and got.shape == (-(-want.size // 32),)
     assert want.any()
     np.testing.assert_array_equal(unpack_bits(got, want.size).numpy(), want)
@@ -119,22 +120,25 @@ def test_wrappers_refuse_other_devices():
     params = KssdParams(*L3K10)
     h = StreamHasher(params)
     w = torch.zeros((2, 10), dtype=torch.int32, device="meta")
+    tables = keep_tables(np.zeros(64, np.int32), 1, "meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        keep_words(w, w, 0, h, 32, w)
+        keep_words(w, w, 0, h, 32, tables)
     with pytest.raises(ValueError, match="unsupported device"):
-        compact_append(w, w, w, (w,) * 4, w, w, 0, h, 32, 1, 4, None)
+        compact_append(w, w, w, (w,) * 4, w, w, 0, h, 32, 1, 4, None,
+                       LookbackScratch(w.device))
 
 
 def _card_compact(fn, keep, tw, table_t, h, halo, cap, buf_cap, count0,
-                  g_cap, dev):
+                  g_cap, dev, *scratch):
     """(count, overflow, buffers[:count]) of one compact + append from
-    zeroed buffers."""
+    zeroed buffers (``scratch``: the kernel's look-back scratch, which
+    the plain version does not take)."""
     bufs = tuple(torch.zeros(buf_cap, dtype=torch.int32, device=dev)
                  for _ in range(4))
     c, o = fn(keep, tw, table_t, bufs,
               torch.tensor(count0, dtype=torch.int32, device=dev),
               torch.zeros((), dtype=torch.bool, device=dev), 5, h, halo, cap,
-              buf_cap, g_cap)
+              buf_cap, g_cap, *scratch)
     return int(c), bool(o), [b[: int(c)] for b in bufs]
 
 
@@ -163,15 +167,15 @@ def test_kernels_match_plain_on_card(cfg, nb, block, kept):
             0, 2 * params.dim_end, size=params.dim_size).astype(np.int32)
     halo = aligned_halo(params)
     h = StreamHasher(params)
-    table_t, bitmap = keep_tables(table, params.dim_end, dev)
+    tables = keep_tables(table, params.dim_end, dev)
     tw = torch.from_numpy(words.view(np.int32)).to(dev)
     valid = _valid(words, exc).to(dev)
     n = nb * block
     upto = n - 1000
     before = keep_words.launches
-    got = keep_words(tw, valid, upto, h, halo, bitmap)
+    got = keep_words(tw, valid, upto, h, halo, tables)
     assert keep_words.launches == before + 1
-    want = keep_words_plain(tw, valid, upto, h, halo, bitmap)
+    want = keep_words_plain(tw, valid, upto, h, halo, tables.bitmap)
     assert torch.equal(got, want)
     g_cap = (min(n // 32, max(4096, 4 * (n >> 4 * params.drlevel) // 32))
              if params.drlevel >= 3 and n % 32 == 0 else None)
@@ -181,13 +185,15 @@ def test_kernels_match_plain_on_card(cfg, nb, block, kept):
         if nb > 1:
             assert int(flags.sum()) > g_cap
         modes.append(int(flags[: 3 * compact_tile_words()].sum()))
+    scratch = LookbackScratch(dev)
     for mode in modes:
         for cap, buf_cap, count0 in ((1 << 17, 1 << 19, 100), (8, 64, 0),
                                      (1 << 12, 1 << 14, (1 << 14) - 100)):
             (kc, ko, kb), (pc, po, pb) = (
-                _card_compact(fn, got, tw, table_t, h, halo, cap, buf_cap,
-                              count0, mode, dev)
-                for fn in (compact_append, compact_append_plain))
+                _card_compact(fn, got, tw, tables.table, h, halo, cap,
+                              buf_cap, count0, mode, dev, *extra)
+                for fn, extra in ((compact_append, (scratch,)),
+                                  (compact_append_plain, ())))
             assert (kc, ko) == (pc, po)
             for x, y in zip(kb, pb):
                 assert torch.equal(x, y)
@@ -209,17 +215,18 @@ def test_compact_back_to_back_on_card():
     for nb, block, g_cap in ((16, 1 << 17, 4096), (16, (1 << 17) - 16, None),
                              (1, 2048, 64)):
         words, exc, table = _batch(params, nb, block, seed=nb + block)
-        table_t, bitmap = keep_tables(table, params.dim_end, dev)
+        tables = keep_tables(table, params.dim_end, dev)
         tw = torch.from_numpy(words.view(np.int32)).to(dev)
         keep = keep_words(tw, _valid(words, exc).to(dev), nb * block, h,
-                          halo, bitmap)
-        cycle.append((keep, tw, table_t, g_cap))
+                          halo, tables)
+        cycle.append((keep, tw, tables.table, g_cap))
     cap, buf_cap = 1 << 12, 1 << 14
     want = [_card_compact(compact_append_plain, k, tw, t, h, halo, cap,
                           buf_cap, 7, g, dev) for k, tw, t, g in cycle]
+    scratch = LookbackScratch(dev)
     for i in range(100):
         got = _card_compact(compact_append, *cycle[i % 3][:3], h, halo, cap,
-                            buf_cap, 7, cycle[i % 3][3], dev)
+                            buf_cap, 7, cycle[i % 3][3], dev, scratch)
         assert got[:2] == want[i % 3][:2]
     for x, y in zip(got[2], want[99 % 3][2]):
         assert torch.equal(x, y)

@@ -35,8 +35,8 @@ import torch
 from rabbitkssd_tpu_torch.engine.sketcher import aligned_halo
 from rabbitkssd_tpu_torch.ops.kmer import (StreamHasher, pack_words_np,
                                            pad_exceptions)
-from rabbitkssd_tpu_torch.ops.member import (SUMMARY_BYTES, bitmap_summary,
-                                             keep_tables, summary_np)
+from rabbitkssd_tpu_torch.ops.member import (SUMMARY_BYTES, keep_tables,
+                                             summary_np)
 from rabbitkssd_tpu_torch.ops.stream import (LookbackScratch,
                                              compact_append_plain,
                                              keep_words_plain)
@@ -76,7 +76,8 @@ def _tables(cfg, kept_every: int):
         table = np.random.default_rng(kept_every).integers(
             0, kept_every * params.dim_end,
             size=params.dim_size).astype(np.int32)
-        _TABLES[key] = (table, keep_tables(table, params.dim_end, "cpu")[1])
+        _TABLES[key] = (table,
+                        keep_tables(table, params.dim_end, "cpu").bitmap)
     return _TABLES[key]
 
 
@@ -188,8 +189,8 @@ def keep_model(words, valid, valid_upto, params, bitmap):
     K, hoc2 = params.kmer_size, 2 * params.half_outctx_len
     v = valid.numpy()
     bm = bitmap.numpy().view(np.uint32)
-    summary, shift = bitmap_summary(bitmap, params.dim_size)
-    summary = summary.numpy().view(np.uint32)
+    summary, shift = summary_np(bitmap.numpy(), params.dim_size)
+    summary = summary.view(np.uint32)
     out = np.zeros(G, np.uint32)
     for g in range(G):
         p0 = 32 * g
@@ -238,10 +239,18 @@ def test_bitmap_summary(half_subk):
     want = (bm != 0).reshape(-1, 1 << shift).any(axis=1)
     np.testing.assert_array_equal(bits[:want.size].astype(bool), want)
     assert not bits[want.size:].any()
-    # a bitmap keep_tables did not make gets the same summary at first use
-    got, got_shift = bitmap_summary(torch.from_numpy(bm), dim_size)
-    assert got_shift == shift
-    np.testing.assert_array_equal(got.numpy(), summary)
+    # keep_tables uploads the same summary and shift with the bitmap:
+    # a table that keeps exactly the bits of bm (dim_end 1)
+    table = np.ones(dim_size, np.int32)
+    nz = np.flatnonzero(bm)
+    bits = np.unpackbits(bm[nz].view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")
+    w, b = np.nonzero(bits)
+    table[32 * nz[w] + b] = 0
+    tables = keep_tables(table, 1, "cpu")
+    np.testing.assert_array_equal(tables.bitmap.numpy(), bm)
+    assert tables.shift == shift and tables.dim_size == dim_size
+    np.testing.assert_array_equal(tables.summary.numpy(), summary)
 
 
 # --------------------------------------------------------------------------
