@@ -21,7 +21,8 @@ import sys
 import torch
 
 from .device import resolve_device
-from .parallel.multihost import barrier, init_multihost, is_writer, shutdown
+from .parallel.multihost import (barrier, init_multihost, is_writer,
+                                 shutdown, thread_budget)
 from .utils.timers import phase
 
 
@@ -184,7 +185,7 @@ def _load_or_sketch(list_or_sketch: str, shuf_file: str, device,
     (subCommand.cpp:161-193)."""
     from .formats import (is_sketch_file, read_sketches, save_sketches,
                           write_index)
-    from .shuffle import read_shuffle_file
+    from .shuffle import read_shuffle_kept
 
     from .engine.sketcher import sketch_file_list
 
@@ -200,7 +201,7 @@ def _load_or_sketch(list_or_sketch: str, shuf_file: str, device,
         barrier()  # no rank reads an index still being written
         return sk, sketch_out
     with phase("read shuffle file"):
-        shuf = read_shuffle_file(shuf_file)
+        shuf = read_shuffle_kept(shuf_file, thread_budget(max(0, threads)))
     with phase("computing sketches and save sketches into file"):
         sk = sketch_file_list(list_or_sketch, shuf, device=device,
                               least_qual=least_qual,
@@ -220,7 +221,7 @@ def _load_or_sketch(list_or_sketch: str, shuf_file: str, device,
 def cmd_sketch(args) -> int:
     from .formats import (is_sketch_file, read_sketches, save_sketches,
                           write_index)
-    from .shuffle import read_shuffle_file
+    from .shuffle import read_shuffle_kept
 
     from .engine.sketcher import sketch_file_list
 
@@ -243,7 +244,9 @@ def cmd_sketch(args) -> int:
         return 0
     _eprint(f"---read the shuffle file: {args.shuf_file}")
     with phase("read shuffle file"):
-        shuf = read_shuffle_file(args.shuf_file)
+        # the kept set alone, on the threads the parse gets later
+        shuf = read_shuffle_kept(args.shuf_file,
+                                 thread_budget(max(0, args.threads)))
     with phase("computing sketches and save sketches into file"):
         sk = sketch_file_list(args.input, shuf, device=args.device,
                               least_qual=args.leastQuality,

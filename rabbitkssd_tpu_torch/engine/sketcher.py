@@ -46,10 +46,11 @@ from ..ops.kmer import StreamHasher, encode_concat, exc_bucket, \
     pack_words_np
 from ..ops.member import KeepTables, keep_tables
 from ..ops.stream import LookbackScratch, compact_append, keep_words
-from ..parallel.multihost import local_world, rank
+from ..parallel.multihost import rank, thread_budget
 from ..parallel.sharded import Mesh, allgather_columns, any_rank, make_mesh
 from ..params import KssdParams
 from ..seqio import read_records
+from ..shuffle import KeptSet, ShuffleKept
 from ..utils.timers import phase, progress_bar_size
 
 # batches per carry-buffer drain: bounds the pending batches' device
@@ -613,7 +614,7 @@ class DeviceSketcher:
     (:func:`make_mesh`): one shard in a single process.
     """
 
-    def __init__(self, params: KssdParams, shuffled_dim: np.ndarray,
+    def __init__(self, params: KssdParams, kept: KeptSet | np.ndarray,
                  device, n_blocks: int = 16, block: int = 1 << 17,
                  least_qual: int = 0, least_num_kmer: int = 1,
                  buf_cap: int = 1 << 23, threads: int = 0,
@@ -627,7 +628,7 @@ class DeviceSketcher:
         self.threads = threads
         self.n_blocks = n_blocks
         self.block = block
-        self.tables = keep_tables(shuffled_dim, params.dim_end, self.device)
+        self.tables = keep_tables(kept, params.dim_end, self.device)
         n = n_blocks * block
         # per-batch capacity: 4x the expected survivor count, floor 16k
         exp = n >> (4 * params.drlevel)
@@ -748,13 +749,17 @@ class DeviceSketcher:
         # the invalid positions the feeder emitted, before bucket
         # padding; exc_build, a part of feed: the feeder taking them
         # and mapping them to flat coordinates; abundance, a part of
-        # finalize: the count and filter of -n > 1.
+        # finalize: the count and filter of -n > 1.  keep_bytes_up: the
+        # bytes keep_tables copied to the device; keep_threads: the
+        # threads of the shuffle file's pass (0: NumPy or in memory).
         B = {"feed": 0.0, "h2d_put": 0.0, "qwait": 0.0, "dispatch": 0.0,
              "flush_scalars": 0.0, "flush_collect": 0.0, "finalize": 0.0,
              "drain": 0.0, "wall": 0.0, "h2d_bytes": 0, "batches": 0,
              "reruns": 0, "exchange": 0.0, "parse_wait": 0.0, "pin": 0.0,
              "pinned_allocs": 0, "consumer_cpu": 0.0, "slot_waits": 0,
-             "exceptions": 0, "exc_build": 0.0, "abundance": 0.0}
+             "exceptions": 0, "exc_build": 0.0, "abundance": 0.0,
+             "keep_bytes_up": self.tables.bytes_up,
+             "keep_threads": self.tables.threads}
         waits0, wait_s0 = ring.waits, ring.wait_s
         t_start = _pc()
 
@@ -914,10 +919,7 @@ class DeviceSketcher:
         stream_threshold = int(
             os.environ.get("KSSD_STREAM_THRESHOLD", 1 << 30))
 
-        # the host's thread budget: every rank of a node parses the whole
-        # corpus, so a rank has its share of the cores
-        budget = self.threads or max(
-            1, (os.cpu_count() or 1) // local_world())
+        budget = thread_budget(self.threads)
         # the chunked reader's threads: the budget less a core each for
         # the producer, consumer and flusher, at most _SPLIT_THREADS
         split_threads = min(_SPLIT_THREADS, max(1, budget - 3))
@@ -1107,10 +1109,12 @@ def sketch_file_list(list_path: str, shuf, device, least_qual: int = 0,
     """List-of-files entry point (the command_sketch engine, reference
     subCommand.cpp:50-68).
 
-    The input list must classify as fasta or fastq (sniffers mirror
-    sketch.cpp:68-161); quality/abundance thresholds apply only on the
-    fastq path, as in the reference.  ``kw`` goes to DeviceSketcher
-    (n_blocks, block, buf_cap, mesh).
+    ``shuf``: a ``ShuffleKept`` (shuffle.py), or a ``ShuffleFile`` whose
+    table :func:`keep_tables` turns into a kept set.  The input list must
+    classify as fasta or fastq (sniffers mirror sketch.cpp:68-161);
+    quality/abundance thresholds apply only on the fastq path, as in the
+    reference.  ``kw`` goes to DeviceSketcher (n_blocks, block, buf_cap,
+    mesh).
     """
     from ..seqio import classify_list, read_list
 
@@ -1119,7 +1123,8 @@ def sketch_file_list(list_path: str, shuf, device, least_qual: int = 0,
     files = read_list(list_path)
     params = KssdParams(half_k=shuf.k, half_subk=shuf.subk,
                         drlevel=shuf.drlevel)
-    sk = DeviceSketcher(params, shuf.shuffled_dim, device=device,
+    kept = shuf.kept if isinstance(shuf, ShuffleKept) else shuf.shuffled_dim
+    sk = DeviceSketcher(params, kept, device=device,
                         least_qual=least_qual, least_num_kmer=least_num_kmer,
                         threads=threads, **kw)
     return sk.sketch_files(files)

@@ -46,8 +46,32 @@ def _sources() -> list[str]:
     )
 
 
+# mallopt parameters (glibc malloc.h) and the mmap threshold fixed here
+_M_TRIM_THRESHOLD, _M_MMAP_THRESHOLD = -1, -3
+_MMAP_THRESHOLD = 32 << 20
+
+
+def _fix_malloc_thresholds() -> None:
+    """Fix glibc's mmap threshold at 32 MiB and its trim threshold at
+    twice that, where its dynamic rule ends.  Until a free of a larger
+    block raises it, glibc maps every block of 128 KiB or more on its
+    own; the parse threads' buffers of each genome are such blocks, and
+    each unmap stalls every thread of the process (a bact sketch
+    command spent 4x the kernel time, and its stream pipeline ran 1.4x
+    longer, on an H100 host).  Nothing to do off glibc."""
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except AttributeError:
+        return
+    mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    mallopt(_M_MMAP_THRESHOLD, _MMAP_THRESHOLD)
+    mallopt(_M_TRIM_THRESHOLD, 2 * _MMAP_THRESHOLD)
+
+
 def load_native():
-    """Compile (if needed) and load the native library; None on failure."""
+    """Compile (if needed) and load the native library, and fix the
+    process's malloc thresholds for its threads
+    (:func:`_fix_malloc_thresholds`); None on failure."""
     global _LIB, _TRIED
     with _LOCK:
         if _LIB is not None or _TRIED:
@@ -81,6 +105,7 @@ def load_native():
         if _LIB is not None:
             import ctypes as ct
 
+            _fix_malloc_thresholds()
             _LIB.kssd_fasta_codes.restype = ct.c_int
             _LIB.kssd_fasta_codes.argtypes = [
                 ct.c_char_p, ct.c_int,
@@ -113,6 +138,13 @@ def load_native():
                 ct.c_void_p, ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64)]
             _LIB.kssd_split_close.restype = None
             _LIB.kssd_split_close.argtypes = [ct.c_void_p]
+            _LIB.kssd_shuffle_kept.restype = ct.c_int
+            _LIB.kssd_shuffle_kept.argtypes = [
+                ct.c_int, ct.c_int64, ct.c_int64, ct.c_int32, ct.c_int64,
+                ct.c_int, ct.POINTER(ct.c_int32),
+                ct.POINTER(ct.POINTER(ct.c_int32)),
+                ct.POINTER(ct.POINTER(ct.c_int32)), ct.POINTER(ct.c_int64),
+            ]
             _LIB.kssd_pair_count.restype = None
             _LIB.kssd_pair_count.argtypes = [
                 ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int64),
@@ -579,6 +611,39 @@ def _take_i32(lib, ptr, n):
     finally:
         if ptr:
             lib.kssd_free(ptr)
+
+
+def shuffle_kept(fd: int, offset: int, n: int, dim_end: int, threads: int,
+                 range_entries: int):
+    """The kept set of the ``n`` int32 table entries at byte ``offset``
+    of the open file ``fd``: (bitmap int32[ceil(n/32)], kept dims int32
+    ascending, their values int32), read in one pass on ``threads``
+    threads in ranges of ``range_entries`` (a multiple of 32); None if
+    the toolchain is unavailable.  Raises EOFError if the file ends
+    before the table does."""
+    import ctypes as ct
+
+    import numpy as np
+
+    lib = load_native()
+    if lib is None:
+        return None
+    bitmap = np.empty(-(-n // 32), np.int32)
+    dp = ct.POINTER(ct.c_int32)()
+    vp = ct.POINTER(ct.c_int32)()
+    nk = ct.c_int64()
+    rc = lib.kssd_shuffle_kept(
+        fd, offset, n, dim_end, range_entries, threads,
+        bitmap.ctypes.data_as(ct.POINTER(ct.c_int32)),
+        ct.byref(dp), ct.byref(vp), ct.byref(nk))
+    dims, vals = _take_i32(lib, dp, nk.value), _take_i32(lib, vp, nk.value)
+    if rc == 1:
+        raise EOFError
+    if rc == 2:
+        raise OSError("shuffle table read failed")
+    if rc:
+        raise MemoryError("shuffle table pass: out of memory")
+    return bitmap, dims, vals
 
 
 def fasta_packed(path: str, least_qual: int = 0):

@@ -3,13 +3,13 @@
 Port of ``rabbitkssd_tpu/ops/pallas_member.py`` (the Pallas
 ``_member_kernel``).  The kept set {d : 0 <= shuffled_dim[d] < dim_end}
 is carried as a bitmap of ``dim_size`` bits in int32 words (bit d of
-word d >> 5); :func:`member` looks each dim_id up in it.  On a CUDA
-tensor it launches the hand-written kernel in ``csrc/member.cu``, which
-tests the bitmap's :func:`summary_np` in shared memory before it reads
-the bitmap; on a CPU tensor it runs :func:`member_plain`, the
-same lookup as torch ops.  The sketch stream step does not call it:
-``ops/stream.py`` fuses the same lookup (``csrc/member.cuh``, and the
-same summary) into the window hash.
+word d >> 5, ``shuffle.py:bitmap_np``); :func:`member` looks each dim_id
+up in it.  On a CUDA tensor it launches the hand-written kernel in
+``csrc/member.cu``, which tests the bitmap's :func:`summary_np` in
+shared memory before it reads the bitmap; on a CPU tensor it runs
+:func:`member_plain`, the same lookup as torch ops.  The sketch stream
+step does not call it: ``ops/stream.py`` fuses the same lookup
+(``csrc/member.cuh``, and the same summary) into the window hash.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..shuffle import KeptSet, bitmap_np, kept_set_np
 from ..utils.timers import phase
 from ._build import load_cuda_lib
 
@@ -27,16 +28,6 @@ _BITS = 32
 # the bitmap summary that stream_keep holds in shared memory: at most
 # this many bytes
 SUMMARY_BYTES = 32 << 10
-
-
-def bitmap_np(kept_mask: np.ndarray) -> np.ndarray:
-    """bool[dim_size] kept mask -> int32[ceil(dim_size/32)] bitmap words
-    (bit d of word d >> 5 set iff d is kept)."""
-    m = np.asarray(kept_mask, bool)
-    pad = (-m.size) % _BITS
-    if pad:
-        m = np.concatenate([m, np.zeros(pad, bool)])
-    return np.packbits(m, bitorder="little").view("<u4").view(np.int32)
 
 
 def summary_np(bm: np.ndarray, dim_size: int) -> tuple[np.ndarray, int]:
@@ -60,16 +51,23 @@ def summary_np(bm: np.ndarray, dim_size: int) -> tuple[np.ndarray, int]:
 class KeepTables:
     """The keep test's state on one device, made by :func:`keep_tables`.
 
-    ``table`` int32[dim_size] gives survivors their permuted rank;
-    ``bitmap`` int32[ceil(dim_size/32)] is the kept set; ``summary`` and
-    ``shift`` its :func:`summary_np`, which the kernels test in shared
-    memory before they probe the bitmap."""
+    ``table`` int32[dim_size] holds the permuted rank of each kept dim
+    and -1 elsewhere: the kernels and the plain compaction read it at
+    survivors only, and -1 fails the K-step hasher's ``0 <= pf <
+    dim_end`` test as any dim outside the kept set does.  ``bitmap``
+    int32[ceil(dim_size/32)] is the kept set; ``summary`` and ``shift``
+    its :func:`summary_np`, which the kernels test in shared memory
+    before they probe the bitmap.  ``bytes_up``: the bytes that
+    :func:`keep_tables` copied to the device; ``threads``: the kept
+    set's (:class:`~rabbitkssd_tpu_torch.shuffle.KeptSet`)."""
 
     table: torch.Tensor
     bitmap: torch.Tensor
     summary: torch.Tensor
     shift: int
     dim_size: int
+    bytes_up: int = 0
+    threads: int = 0
 
     def __post_init__(self):
         # the kernels take these tensors' pointers
@@ -85,24 +83,35 @@ class KeepTables:
                              f"for dim_size {self.dim_size}")
 
 
-def keep_tables(shuffled_dim: np.ndarray, dim_end: int, device
+def keep_tables(kept: KeptSet | np.ndarray, dim_end: int, device
                 ) -> KeepTables:
-    """The keep test's state from a shuffle permutation, on ``device``.
-    The bitmap and its summary go up in one copy (the bitmap is a view
-    of the first words, the summary of the last, from a 16-byte boundary
-    on), the table in another."""
+    """The keep test's state on ``device`` from a kept set, or from a
+    shuffle permutation turned into one (:func:`kept_set_np`).  The
+    bitmap, its summary (from a 16-byte boundary on) and the kept dims
+    and values go up in one copy; the table is filled with -1 on the
+    device and the kept values scattered into it."""
     with phase("keep table build"):
-        t = np.ascontiguousarray(shuffled_dim, dtype=np.int32)
-        bm = bitmap_np((t >= 0) & (t < dim_end))
-        summary, shift = summary_np(bm, t.size)
+        if not isinstance(kept, KeptSet):
+            kept = kept_set_np(kept, dim_end)
+        if kept.dim_end != dim_end:
+            raise ValueError(f"keep_tables: a kept set for dim_end "
+                             f"{kept.dim_end}, not {dim_end}")
+        bm, n = kept.bitmap, kept.dims.size
+        summary, shift = summary_np(bm, kept.dim_size)
         gap = np.zeros(-bm.size % 4, np.int32)
-        both = np.concatenate([bm, gap, summary])
-    # blocking copies: the span ends with both tables on the device
+        host = np.concatenate([bm, gap, summary, kept.dims, kept.values])
+    # the span ends with the tables on the device
     with phase("keep table upload"):
-        both = torch.from_numpy(both).to(device)
-        table = torch.from_numpy(t).to(device)
-    return KeepTables(table, both[: bm.size], both[bm.size + gap.size:],
-                      shift, t.size)
+        up = torch.from_numpy(host).to(device)
+        table = torch.full((kept.dim_size,), -1, dtype=torch.int32,
+                           device=up.device)
+        table.index_copy_(0, up[host.size - 2 * n: host.size - n].long(),
+                          up[host.size - n:])
+        if up.device.type == "cuda":
+            torch.cuda.synchronize(up.device)
+    s0 = bm.size + gap.size
+    return KeepTables(table, up[: bm.size], up[s0: s0 + summary.size],
+                      shift, kept.dim_size, host.nbytes, kept.threads)
 
 
 def bitmap_from_lane_table(lane_tab: np.ndarray, dim_size: int

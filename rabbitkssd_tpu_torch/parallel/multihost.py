@@ -80,6 +80,13 @@ def local_world() -> int:
     return _env_int("LOCAL_WORLD_SIZE", _env_int("WORLD_SIZE", 1))
 
 
+def thread_budget(threads: int = 0) -> int:
+    """The host threads of this rank: ``threads`` (``-t``) if given, else
+    its share of the node's cores (every rank of a node reads the whole
+    input)."""
+    return threads or max(1, (os.cpu_count() or 1) // local_world())
+
+
 def is_writer() -> bool:
     """Whether this rank writes files: local rank 0 of each node.  The
     ranks of one node share its filesystem, so one write per node."""

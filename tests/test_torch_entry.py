@@ -38,7 +38,11 @@ def test_entry_matches_jax_and_repeats():
     # the same inputs: word rows, exception list, table, valid_upto
     np.testing.assert_array_equal(args[0].numpy().view(np.uint32), jargs[0])
     np.testing.assert_array_equal(args[1].numpy(), jargs[1])
-    np.testing.assert_array_equal(args[2].table.numpy(), jargs[2][0])
+    # the table: the JAX table's ranks at its kept dims, -1 elsewhere
+    table, (jtable, jkept) = args[2].table.numpy(), jargs[2]
+    kept = np.asarray(jkept)[np.asarray(jkept) >= 0]
+    np.testing.assert_array_equal(table[kept], np.asarray(jtable)[kept])
+    assert (np.delete(table, kept) == -1).all()
     assert (args[9], args[10]) == (int(jargs[9]), int(jargs[10]))
 
     first = fn(*args)

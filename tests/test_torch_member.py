@@ -37,7 +37,10 @@ def test_member_matches_lane_kernel(dim_size, dim_end, n):
     np.testing.assert_array_equal(want, table[dims] < dim_end)
 
     tables = keep_tables(table, dim_end, "cpu")
-    assert torch.equal(tables.table, torch.from_numpy(table))
+    # the table: the permuted rank at kept dims, -1 elsewhere
+    kept = table < dim_end
+    np.testing.assert_array_equal(tables.table.numpy()[kept], table[kept])
+    assert (tables.table.numpy()[~kept] == -1).all()
     assert tables.dim_size == dim_size
     view = torch.from_numpy(base).view(-1)[o:]
     assert view.storage_offset() == o and view.is_contiguous()

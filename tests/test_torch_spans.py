@@ -93,6 +93,18 @@ def test_cli_sketch_budget_parts(cli_pass):
     check_budget(cli_pass.budget)
 
 
+def test_cli_sketch_budget_keep_keys(cli_pass):
+    """The keep tables' copy (bitmap, summary and kept pairs, far below
+    the 2^16-entry table) and the shuffle pass's threads: the thread
+    budget where the native library loads."""
+    from rabbitkssd_tpu_torch.native import load_native
+    from rabbitkssd_tpu_torch.parallel.multihost import thread_budget
+
+    b = cli_pass.budget
+    assert 0 < b["keep_bytes_up"] < 4 << 16
+    assert b["keep_threads"] == (thread_budget() if load_native() else 0)
+
+
 def _budget_of(stderr: str) -> dict:
     (line,) = [ln for ln in stderr.splitlines()
                if ln.startswith("sketch budget: ")]
