@@ -4,7 +4,9 @@ Set-up: make the cell's inputs from the seed (``traffic/<kind>.py``),
 the shuffle file (the reference's, cached in ``cache/``), and run the
 cell's command once to warm up.  Window: run the command back to back,
 each in this process through ``rabbitkssd_tpu_torch.cli.main``, until
-``--seconds`` have passed; the last command ends the window.  With
+``--seconds`` have passed; the last command ends the window.  A cell
+on ``chips`` C > 1 runs every command on C ranks, one a card: this
+process rank 0 and C - 1 worker processes (``ranks.py``).  With
 ``--trace 1`` a ``torch.profiler`` trace covers the window.  Then the
 outputs of every timed command go to the cell's check, the metrics that
 ``BENCHMARK.json`` gives the cell are read (``metrics/<name>.py``), and
@@ -288,6 +290,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     config = load_json("configs", cell["config"])
     metrics = cell_metrics(benchmark(), workload, trace)
     _environment(cell)
+    n_ranks = cell["chips"]
+    if n_ranks > 1:
+        from . import ranks
+
+        ranks.environment(n_ranks)
     import torch
 
     if require_card and (not torch.cuda.is_available()
@@ -308,6 +315,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     stages = {"imports": time.perf_counter() - start}
 
     work = tempfile.mkdtemp(prefix="kssd_bench.")
+    group, step = None, run_command
     try:
         outs = os.path.join(work, "out")
         os.makedirs(outs)
@@ -317,6 +325,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         # the reference's shuffle file is the check's, not the program's
         stages["reference shuffle"] = shuffle_s
         stages["inputs"] = time.perf_counter() - t - shuffle_s
+        if n_ranks > 1:
+            t = time.perf_counter()
+            group = ranks.Ranks(n_ranks, device, work)
+            step = group.command
+            stages["ranks"] = time.perf_counter() - t
         t = time.perf_counter()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -324,8 +337,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             torch.cuda.reset_peak_memory_stats(dev)
         out_pat = os.path.join(outs, cell["out"])
         out = out_pat.format(n="w")
-        p = run_command(cli, fill(cell["argv"], dict(values, out=out)), out,
-                        dev)
+        p = step(cli, fill(cell["argv"], dict(values, out=out)), out, dev)
         if p.error:
             raise RuntimeError(f"warm-up command failed: {p.error}")
         os.remove(out)
@@ -347,7 +359,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         t_w0 = time.perf_counter()
         while not passes or time.perf_counter() - t_w0 < seconds:
             out = out_pat.format(n=len(passes))
-            passes.append(run_command(
+            passes.append(step(
                 cli, fill(cell["argv"], dict(values, out=out)), out, dev))
         summary = None
         if prof is not None:
@@ -363,6 +375,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             os.remove(path)
         memory_peak = (torch.cuda.max_memory_allocated(dev)
                        if dev.type == "cuda" else 0)
+        if group is not None:
+            # the fullest card; every rank leaves the process group
+            peak, leaked_by_workers = group.finish()
+            memory_peak = max(memory_peak, peak)
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -416,10 +432,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                 f"{n} {v:.3f}" for n, v, _ in p.phases)
             for p in passes]
         leaked = forbidden_loaded()
+        if group is not None:
+            leaked += leaked_by_workers
         if leaked:
             return {"error": f"modules loaded: {', '.join(leaked)}"}
         return result
     finally:
+        if group is not None:
+            group.close()
         shutil.rmtree(work, ignore_errors=True)
 
 

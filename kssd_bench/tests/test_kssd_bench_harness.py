@@ -61,6 +61,19 @@ def test_configs_state_their_cuts():
             assert key in cfg and NAME.match(key)
 
 
+def test_cells_pair_configs_and_traffic_once():
+    bench = harness.benchmark()
+    cells = bench["workloads"]
+    pairs = [(w["config"], w["traffic"]) for w in cells]
+    assert len(pairs) == len(set(pairs)), pairs
+    configs = [c["name"] for c in bench["configs"]]
+    assert sorted(configs) == sorted({w["config"] for w in cells})
+    sources = [c["source"] for c in bench["configs"]]
+    assert len(sources) == len(set(sources))
+    assert all(w["chips"] in (1, 4) for w in cells)
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
+
+
 def test_names_units_and_lines_keep_the_contract():
     bench = harness.benchmark()
     every = (bench["configs"] + bench["workloads"] + bench["end_to_end"]
